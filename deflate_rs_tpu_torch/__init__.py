@@ -5,8 +5,9 @@ stays the reference) to PyTorch, with hand-written CUDA kernels for an
 NVIDIA Hopper card in place of its Pallas kernels.  Output is byte-identical
 to the reference.  This package imports ``torch`` and never ``jax``.
 
-Ported so far: the one-shot API at the Default configuration.  Every entry
-takes ``device`` (default ``"cuda"``).
+Ported so far: the one-shot API at every preset (Default, high, fast, rle,
+huffman_only, turbo) and both force modes.  Every entry takes ``device``
+(default ``"cuda"``).
 """
 
 from .compression_options import (

@@ -7,10 +7,10 @@ kernel gates (``lr_kernel``, ``hist_kernel``, ``field_kernel``) are left out:
 on a CUDA tensor the port's kernels always run, and on a CPU tensor their
 plain PyTorch versions do.
 
-``check_slice`` is the scope guard: the port so far runs the Default
-configuration's path (suffix-sort matcher, local long-range pass, proxy
-split scoring); every other path raises ``NotImplementedError`` naming the
-ROADMAP item that will port it.
+``check_slice`` is the scope guard: the port runs every preset; the two
+long-range knobs it does not run yet (``lr_global``, and ``lr_stride > 1``
+without pair collapse) raise ``NotImplementedError`` naming the ROADMAP
+item that will port them.
 """
 
 from __future__ import annotations
@@ -298,31 +298,18 @@ def options_from_reference(fields: dict) -> CompressionOptions:
 
 
 def check_slice(options: CompressionOptions) -> None:
-    """Raise ``NotImplementedError`` for options outside the ported path."""
-    if options.matcher_mode != "hash":
+    """Raise ``NotImplementedError`` for options outside the ported path.
+
+    Every preset is ported; what is left are two internal long-range knobs
+    that no preset sets."""
+    if not (options.matcher_mode == "hash" and options.use_long_range):
+        return
+    if options.lr_global:
         raise NotImplementedError(
-            f"matcher mode {options.matcher_mode!r} (rle / huffman_only / "
-            "turbo) is not ported yet: ROADMAP Queue 1 item 10 (other presets)")
-    if options.matcher_algo != "sa":
+            "lr_global (global_dominant_lengths, union_dominants) is not "
+            "ported yet: ROADMAP Queue 1 item 17 (internal long-range knobs)")
+    if not options.resolved_lr_pair:
         raise NotImplementedError(
-            "the hash matcher (find_matches_hash, the high preset) is not "
-            "ported yet: ROADMAP Queue 1 item 10 (other presets)")
-    if options.fast_family:
-        raise NotImplementedError(
-            "the fast preset is not ported yet: ROADMAP Queue 1 item 10 "
-            "(other presets)")
-    if options.special != SpecialOptions.Normal:
-        raise NotImplementedError(
-            f"{options.special.name} is not ported yet: ROADMAP Queue 1 "
-            "item 10 (other presets)")
-    if options.exact_split_scoring:
-        raise NotImplementedError(
-            "exact split scoring is not ported yet: ROADMAP Queue 1 item 8 "
-            "(Default exact-scoring branch)")
-    if options.use_long_range and (
-        options.lr_global or options.resolved_lr_sel != "run"
-        or not options.resolved_lr_pair
-    ):
-        raise NotImplementedError(
-            "only the local long-range pass with run selection and pair "
-            "collapse is ported: ROADMAP Queue 1 item 10 (other presets)")
+            f"lr_stride={options.lr_stride} (a strided harvest without pair "
+            "collapse) is not ported yet: ROADMAP Queue 1 item 17 (internal "
+            "long-range knobs)")

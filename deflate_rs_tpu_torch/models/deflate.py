@@ -48,7 +48,7 @@ class StreamResult:
         self.isize = isize
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=64)
 def get_chunk_encoder(options: CompressionOptions, emit_size: int, device: str) -> ChunkEncoder:
     """The encoder module for one configuration, on ``device``."""
     return ChunkEncoder(options, emit_size).to(device)

@@ -1,19 +1,22 @@
 """The per-chunk DEFLATE encoder, batched over chunks: ``ChunkEncoder``.
 
-Port of the Default path of ``deflate_rs_tpu/ops/chunk_encode.py``
-(``encode_chunk``; the reference's main loop ``compress_data_dynamic_n``,
-compress.rs:80).  Each row of a batch is one chunk: up to ``emit_size``
-payload bytes preceded by up to 32 KiB of history.  Stages, all on the
-device of the input tensors:
+Port of ``deflate_rs_tpu/ops/chunk_encode.py`` (``encode_chunk``; the
+reference's main loop ``compress_data_dynamic_n``, compress.rs:80) for every
+preset.  Each row of a batch is one chunk: up to ``emit_size`` payload bytes
+preceded by up to 32 KiB of history.  Stages, all on the device of the
+input tensors:
 
-  suffix-sort matcher -> long-range pass (lr_measure kernel) -> chain and
-  stride extension -> lazy jump steps -> parse (parse_scan kernel) ->
-  per-quarter histograms -> proxy-scored block split -> package-merge code
-  lengths (package_merge kernel) -> header RLE -> exact stored / fixed /
-  dynamic choice -> token fields (token_fields kernel) -> bit pack.
+  matcher (suffix sort, hash chains, distance-1 runs or none) -> long-range
+  pass (lr_measure kernel) -> chain and stride extension -> lazy jump steps
+  -> parse (parse_scan kernel) -> per-quarter histograms (quarter_hist
+  kernel) -> block split scored by the entropy proxy or exactly ->
+  package-merge code lengths (package_merge kernel) -> header RLE -> exact
+  stored / fixed / dynamic choice (and the force modes) -> token fields
+  (token_fields kernel) -> bit pack.
 
-The host-constant tables (split machinery, fixed codes, extra-bit tables)
-are registered buffers, so ``.to(device)`` moves them with the module.
+The host-constant tables (split machinery, fixed codes, extra-bit tables,
+the proxy's round-up table) are registered buffers, so ``.to(device)``
+moves them with the module.
 """
 
 from __future__ import annotations
@@ -23,25 +26,32 @@ import torch
 from torch import nn
 
 from .. import constants as C
-from ..compression_options import CompressionOptions, check_slice
+from ..compression_options import CompressionOptions, SpecialOptions, check_slice
 from .bitpack import pack_fields
 from .canonical import canonical_codes
 from .code_lengths import CL_CAP, encode_code_lengths
 from .field_kernel import token_fields
+from .hist_kernel import quarter_histograms
 from .longrange import local_dominant_lengths
-from .matching import chain_extend, find_matches, stride_extend
+from .matching import (chain_extend, find_matches, find_matches_hash, find_rle_matches,
+                       stride_extend)
 from .package_merge import package_merge_rows
 from .parse import build_jumps
 from .parse_scan import parse_scan
+from .proxy import load_roundup_table, proxy_bits, row_offsets
 from .symbolmap import dist_code, length_code
 
 HALO = C.WINDOW_SIZE  # history bytes preceding the emit region
 PAD = 72  # tail padding so packed-word probe reads stay in bounds
 
 
-def out_words(emit_size: int) -> int:
-    """Output words per chunk in Normal mode: the stored bound plus slack
-    (the cost model never exceeds it)."""
+def out_words(emit_size: int, force_fixed: bool = False) -> int:
+    """Output words per chunk.  Normal and ForceStored never exceed the
+    stored bound plus slack (the cost model takes the cheaper one);
+    ForceFixed may emit 9 bits a byte (fixed codes of literals 144..255),
+    so it gets the 9/8 bound."""
+    if force_fixed:
+        return (9 * emit_size) // 32 + 2048
     return emit_size // 4 + (emit_size // C.MAX_STORED_BLOCK + 2) * 2 + 64
 
 
@@ -62,6 +72,7 @@ class SplitCfg:
     def __init__(self, nq: int):
         self.nq = nq
         self.ranges = [(i, j) for i in range(nq) for j in range(i + 1, nq + 1)]
+        self.range_id = {r: k for k, r in enumerate(self.ranges)}
         comps = self.comps = _make_compositions(nq)
         self.hdr_start = np.array(
             [[int(any(r[0] == q for r in c)) for c in comps] for q in range(nq)], np.int32)
@@ -76,27 +87,16 @@ class SplitCfg:
               for q in range(nq)] for t in range(nq)], np.int32)
         self.exist = np.array(
             [[1 if t < len(c) else 0 for c in comps] for t in range(nq)], np.int32)
+        # Range id of each composition's t-th block (0 where it has none).
+        self.rid_t = np.array(
+            [[self.range_id[c[t]] if t < len(c) else 0 for c in comps] for t in range(nq)],
+            np.int32)
         self.comp_ranges = np.array(
             [[1 if r in c else 0 for r in self.ranges] for c in comps], np.int32)
 
 
-def proxy_code_lengths(tot: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """Entropy-proxy code length ``clip(ceil(log2(tot / f)), 1, 15)``.
-
-    Computed exactly in integers (the count of k >= 0 with f * 2^k < tot),
-    so every device gives the same lengths.  The JAX package evaluates it in
-    float32 logarithms; the two can differ only where tot / f is an exact
-    power of two (see ROADMAP Queue 3)."""
-    tot = tot.clamp(min=1)
-    f = f.clamp(min=1)
-    k = torch.zeros_like(f)
-    for s in range(C.MAX_CODE_LENGTH):
-        k += (f << s) < tot
-    return k.clamp(1, C.MAX_CODE_LENGTH)
-
-
 def _gather_slots(x: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
-    """x[b, sid[b, q], ...] for x [B, NS, ...] and sid [B, nq]."""
+    """x[b, sid[b, q], ...] for x [B, X, ...] and sid [B, nq]."""
     idx = sid.reshape(sid.shape + (1,) * (x.dim() - 2))
     return x.gather(1, idx.expand(sid.shape + x.shape[2:]))
 
@@ -113,11 +113,14 @@ class ChunkEncoder(nn.Module):
         sc = self.sc = SplitCfg(options.num_quarters)
         if emit_size % sc.nq:
             raise ValueError(f"emit_size {emit_size} must divide by num_quarters {sc.nq}")
-        self.num_words = out_words(emit_size)
+        self.num_words = out_words(emit_size, options.special == SpecialOptions.ForceFixed)
 
-        def buf(name, arr):
-            self.register_buffer(name, torch.as_tensor(np.asarray(arr, np.int64)), persistent=False)
+        def buf(name, arr, dtype=np.int64):
+            self.register_buffer(name, torch.as_tensor(np.asarray(arr, dtype)), persistent=False)
 
+        buf("proxy_roundup", load_roundup_table(), bool)
+        buf("proxy_offsets", row_offsets())
+        buf("rid_t_c", sc.rid_t.T)                         # [C, t]
         buf("comp_ranges", sc.comp_ranges)                 # [C, R]
         buf("range_lo", [r[0] for r in sc.ranges])         # [R]
         buf("range_hi", [r[1] for r in sc.ranges])         # [R]
@@ -135,6 +138,54 @@ class ChunkEncoder(nn.Module):
         buf("dh_bits", [5, 5, 4])
         buf("sh_bits", [3, 5, 16, 16])
         buf("sy_vals", [0, 0, 0x0000, 0xFFFF])
+
+    @staticmethod
+    def _code_lengths(l_freq, d_freq):
+        """Package-merge code lengths of litlen [B, X, 286] and distance
+        [B, X, 30] histograms in one batched call (the distance rows ride
+        padded to the litlen width; unused symbols are inert)."""
+        B, X, NL = l_freq.shape
+        ND = d_freq.shape[-1]
+        ld = package_merge_rows(
+            torch.cat([l_freq, torch.nn.functional.pad(d_freq, (0, NL - ND))],
+                      dim=1).reshape(B * 2 * X, NL),
+            C.MAX_CODE_LENGTH).long().view(B, 2 * X, NL)
+        return ld[:, :X], ld[:, X:, :ND]
+
+    def _token_bits(self, l_freq, d_freq, l_len, d_len):
+        """Token bits, extra bits included, of histograms under lengths."""
+        return ((l_freq * (l_len + self.l_extra)).sum(-1)
+                + (d_freq * (d_len + self.d_extra)).sum(-1))
+
+    def _headers(self, l_len, d_len) -> dict:
+        """Dynamic-header pieces of code-length rows [B, X, 286] / [B, X, 30]:
+        HLIT/HDIST/HCLEN, the RLE of the concatenated lengths (``sym``,
+        ``n``, ``extra_bits``, ``extra_vals``), the clen code lengths and
+        the header's exact size in bits."""
+        B, X, NL = l_len.shape
+        ND = d_len.shape[-1]
+        dev = l_len.device
+        hlit = (torch.where(l_len > 0, torch.arange(NL, device=dev), -1).amax(-1) + 1).clamp(
+            C.MIN_NUM_LITLEN_CODES, NL)
+        hdist = (torch.where(d_len > 0, torch.arange(ND, device=dev), -1).amax(-1) + 1).clamp(
+            C.MIN_NUM_DIST_CODES, ND)
+        j = torch.arange(CL_CAP, device=dev)
+        cl = torch.where(
+            j < hlit[..., None],
+            l_len[..., j.clamp(0, NL - 1)],
+            d_len.gather(-1, (j - hlit[..., None]).clamp(0, ND - 1)))
+        rle = encode_code_lengths(cl.reshape(B * X, CL_CAP), (hlit + hdist).reshape(-1))
+        rle = {k: v.view((B, X) + v.shape[1:]) for k, v in rle.items()}
+        clen_len = package_merge_rows(
+            rle["freq"].reshape(B * X, 19), C.MAX_CLEN_CODE_LENGTH).long().view(B, X, 19)
+        hclen = (torch.where(clen_len[..., self.clen_order] > 0, torch.arange(19, device=dev), -1)
+                 .amax(-1) + 1).clamp(4, 19)
+        used = j < rle["n"][..., None]
+        bits = (14 + 3 * hclen + torch.where(used, clen_len.gather(-1, rle["sym"]), 0).sum(-1)
+                + rle["extra_bits"].sum(-1))
+        return {"hlit": hlit, "hdist": hdist, "hclen": hclen, "clen_len": clen_len,
+                "bits": bits, "sym": rle["sym"], "n": rle["n"],
+                "extra_bits": rle["extra_bits"], "extra_vals": rle["extra_vals"]}
 
     def forward(self, bufs: torch.Tensor, hist_len: torch.Tensor, n: torch.Tensor,
                 is_last: torch.Tensor) -> dict:
@@ -155,18 +206,27 @@ class ChunkEncoder(nn.Module):
         hstart = HALO - hist_len.to(dev).long()
 
         # ------------------------------------------------------------ LZ77
-        best_len, best_dist = find_matches(
-            bufs, N, n_total, hstart, opt.num_candidates, opt.probe_words,
-            opt.resolved_sort_nkey, opt.resolved_sa_tail)
-        if opt.use_long_range:
+        mode = opt.matcher_mode
+        if mode == "rle":
+            best_len, best_dist = find_rle_matches(bufs, n_total, hstart, N)
+        elif mode == "none":  # huffman_only, turbo
+            best_len = best_dist = torch.zeros((B, N), dtype=torch.int32, device=dev)
+        elif opt.matcher_algo == "sa":
+            best_len, best_dist = find_matches(
+                bufs, N, n_total, hstart, opt.num_candidates, opt.probe_words,
+                opt.resolved_sort_nkey, opt.resolved_sa_tail)
+        else:
+            best_len, best_dist = find_matches_hash(
+                bufs, N, n_total, hstart, opt.num_candidates, opt.probe_words)
+        if mode == "hash" and opt.use_long_range:
             cap = 4 * opt.probe_words
             d_cand = torch.where(best_len >= cap, best_dist, 0)
             idx = torch.arange(N, device=dev)
             lim_n = (n_total[:, None] - idx).clamp(0, C.MAX_MATCH).int()
             for _ in range(opt.resolved_dom_iters):
                 g_len, g_dist = local_dominant_lengths(
-                    bufs, N, n_total, hstart, d_cand,
-                    num_dom=opt.resolved_num_dom, num_seg=opt.resolved_dom_segs)
+                    bufs, N, n_total, hstart, d_cand, num_dom=opt.resolved_num_dom,
+                    num_seg=opt.resolved_dom_segs, sel=opt.resolved_lr_sel)
                 take = g_len > best_len
                 best_len = torch.where(take, g_len, best_len)
                 best_dist = torch.where(take, g_dist, best_dist)
@@ -199,38 +259,39 @@ class ChunkEncoder(nn.Module):
         dist_extra_v = torch.where(is_match, dist_extra_v, 0)
 
         # ------------------------------------------ per-quarter histograms
+        # Non-token positions count nowhere (999 / 99), as in token_fields.
         NL, ND = C.NUM_USED_LITLEN, C.NUM_DIST_SYMBOLS
-        qpos = torch.arange(E, device=dev) // QL
-        lf_q = torch.zeros((B, nq * NL), dtype=torch.int64, device=dev).scatter_add_(
-            1, qpos * NL + lsym, tvalid.long()).view(B, nq, NL)
-        df_q = torch.zeros((B, nq * ND), dtype=torch.int64, device=dev).scatter_add_(
-            1, qpos * ND + dcode, (tvalid & is_match).long()).view(B, nq, ND)
+        lsym_eff = torch.where(tvalid, lsym, 999).int()
+        dcode_eff = torch.where(tvalid & is_match, dcode, 99).int()
+        lf_q, df_q = quarter_histograms(lsym_eff, dcode_eff, nq)
+        lf_q, df_q = lf_q.long(), df_q.long()
         lf_cum = torch.nn.functional.pad(torch.cumsum(lf_q, dim=1), (0, 0, 1, 0))
         df_cum = torch.nn.functional.pad(torch.cumsum(df_q, dim=1), (0, 0, 1, 0))
         l_freq_r = lf_cum[:, self.range_hi] - lf_cum[:, self.range_lo]  # [B, R, 286]
         d_freq_r = df_cum[:, self.range_hi] - df_cum[:, self.range_lo]  # [B, R, 30]
         l_freq_r[:, :, C.END_OF_BLOCK] += 1
 
-        # ----------------- composition scoring (entropy proxy, exact fixed)
+        # ------------- composition scoring (exact or entropy proxy; exact fixed)
         fixed_l286 = self.fixed_l_len[:NL]
-
-        def proxy_bits(freq_r):
-            lens = proxy_code_lengths(freq_r.sum(dim=-1, keepdim=True), freq_r)
-            bits = torch.where(freq_r > 0, freq_r * lens, 0).sum(dim=-1)
-            used = freq_r > 0
-            prev = torch.nn.functional.pad(used[..., :-1], (1, 0))
-            return bits, used.sum(dim=-1), (prev & ~used).sum(dim=-1)
-
-        lbits_p, lu, lz = proxy_bits(l_freq_r)
-        dbits_p, du, dz = proxy_bits(d_freq_r)
-        extra_bits_r = (l_freq_r * self.l_extra).sum(-1) + (d_freq_r * self.d_extra).sum(-1)
-        fix_tok_bits_r = ((l_freq_r * (fixed_l286 + self.l_extra)).sum(-1)
-                          + (d_freq_r * (self.fixed_d_len + self.d_extra)).sum(-1))
-        proxy_hdr_r = 14 + 57 + 4 * (lu + du) + 8 * (lz + dz)
-        dyn_score_r = 3 + proxy_hdr_r + lbits_p + dbits_p + extra_bits_r
+        fix_tok_bits_r = self._token_bits(l_freq_r, d_freq_r, fixed_l286, self.fixed_d_len)
+        if opt.exact_split_scoring:
+            # Optimal tables and exact headers for every range; the chosen
+            # blocks then reuse them.
+            l_len_r, d_len_r = self._code_lengths(l_freq_r, d_freq_r)
+            hdr_r = self._headers(l_len_r, d_len_r)
+            dyn_tok_bits_r = self._token_bits(l_freq_r, d_freq_r, l_len_r, d_len_r)
+            dyn_score_r = 3 + hdr_r["bits"] + dyn_tok_bits_r
+        else:
+            lbits_p, lu, lz = proxy_bits(l_freq_r, self.proxy_roundup, self.proxy_offsets)
+            dbits_p, du, dz = proxy_bits(d_freq_r, self.proxy_roundup, self.proxy_offsets)
+            extra_bits_r = (l_freq_r * self.l_extra).sum(-1) + (d_freq_r * self.d_extra).sum(-1)
+            proxy_hdr_r = 14 + 57 + 4 * (lu + du) + 8 * (lz + dz)
+            dyn_score_r = 3 + proxy_hdr_r + lbits_p + dbits_p + extra_bits_r
         range_score = torch.minimum(dyn_score_r, 3 + fix_tok_bits_r)  # [B, R]
 
         force_fix = n <= 4
+        if opt.special == SpecialOptions.ForceFixed:
+            force_fix = torch.ones_like(force_fix)
         NC = len(sc.comps)
         comp_cost = (range_score[:, None, :] * self.comp_ranges).sum(-1)  # [B, C]
         not_first = torch.arange(NC, device=dev) != 0
@@ -241,46 +302,30 @@ class ChunkEncoder(nn.Module):
         # ------------- exact Huffman tables for the chosen blocks (<= nq slots)
         NS = nq
         exist = self.exist_c[best_comp]  # [B, NS]
-        mem = self.mem_c[best_comp]  # [B, NS, nq]
-        # (no integer matmul on CUDA: multiply and sum)
-        l_freq_s = (mem[..., None] * lf_q[:, None]).sum(dim=2)
-        l_freq_s[:, :, C.END_OF_BLOCK] += exist
-        d_freq_s = (mem[..., None] * df_q[:, None]).sum(dim=2)
-        d_freq_pad = torch.nn.functional.pad(d_freq_s, (0, NL - ND))
-        ld_len = package_merge_rows(
-            torch.cat([l_freq_s, d_freq_pad], dim=1).reshape(B * 2 * NS, NL),
-            C.MAX_CODE_LENGTH).long().view(B, 2 * NS, NL)
-        l_len_s = ld_len[:, :NS]  # [B, NS, 286]
-        d_len_s = ld_len[:, NS:, :ND]  # [B, NS, 30]
-        sym_l = torch.arange(NL, device=dev)
-        sym_d = torch.arange(ND, device=dev)
-        hlit_s = (torch.where(l_len_s > 0, sym_l, -1).amax(-1) + 1).clamp(
-            C.MIN_NUM_LITLEN_CODES, NL)
-        hdist_s = (torch.where(d_len_s > 0, sym_d, -1).amax(-1) + 1).clamp(
-            C.MIN_NUM_DIST_CODES, ND)
-
-        j = torch.arange(CL_CAP, device=dev)
-        cl_s = torch.where(
-            j < hlit_s[..., None],
-            l_len_s[..., j.clamp(0, NL - 1)],
-            d_len_s.gather(-1, (j - hlit_s[..., None]).clamp(0, ND - 1)))
-        rle = encode_code_lengths(cl_s.reshape(B * NS, CL_CAP), (hlit_s + hdist_s).reshape(-1))
-        rle = {k: v.view((B, NS) + v.shape[1:]) for k, v in rle.items()}
-        clen_len_s = package_merge_rows(
-            rle["freq"].reshape(B * NS, 19), C.MAX_CLEN_CODE_LENGTH).long().view(B, NS, 19)
+        if opt.exact_split_scoring:
+            # Each block's tables, header and bit costs are its range's
+            # (a missing block selects range 0: inert, every use is gated
+            # by ``exist`` or the quarter selectors).
+            rid = self.rid_t_c[best_comp]  # [B, NS]
+            l_freq_s, d_freq_s = _gather_slots(l_freq_r, rid), _gather_slots(d_freq_r, rid)
+            l_len_s, d_len_s = _gather_slots(l_len_r, rid), _gather_slots(d_len_r, rid)
+            hdr_s = {k: _gather_slots(v, rid) for k, v in hdr_r.items()}
+            dyn_tok_bits_s = _gather_slots(dyn_tok_bits_r, rid)
+        else:
+            mem = self.mem_c[best_comp]  # [B, NS, nq]
+            # (no integer matmul on CUDA: multiply and sum)
+            l_freq_s = (mem[..., None] * lf_q[:, None]).sum(dim=2)
+            l_freq_s[:, :, C.END_OF_BLOCK] += exist
+            d_freq_s = (mem[..., None] * df_q[:, None]).sum(dim=2)
+            l_len_s, d_len_s = self._code_lengths(l_freq_s, d_freq_s)
+            hdr_s = self._headers(l_len_s, d_len_s)
+            dyn_tok_bits_s = self._token_bits(l_freq_s, d_freq_s, l_len_s, d_len_s)
+        fix_tok_bits_s = self._token_bits(l_freq_s, d_freq_s, fixed_l286, self.fixed_d_len)
+        hlit_s, hdist_s, hclen_s = hdr_s["hlit"], hdr_s["hdist"], hdr_s["hclen"]
+        clen_len_s = hdr_s["clen_len"]
         clen_in_order_s = clen_len_s[..., self.clen_order]
-        hclen_s = (torch.where(clen_in_order_s > 0, torch.arange(19, device=dev), -1)
-                   .amax(-1) + 1).clamp(4, 19)
-
-        dyn_tok_bits_s = ((l_freq_s * (l_len_s + self.l_extra)).sum(-1)
-                          + (d_freq_s * (d_len_s + self.d_extra)).sum(-1))
-        fix_tok_bits_s = ((l_freq_s * (fixed_l286 + self.l_extra)).sum(-1)
-                          + (d_freq_s * (self.fixed_d_len + self.d_extra)).sum(-1))
-        rle_used_s = j < rle["n"][..., None]
-        rle_sym_clen_s = clen_len_s.gather(-1, rle["sym"])
-        dyn_hdr_bits_s = (14 + 3 * hclen_s
-                          + torch.where(rle_used_s, rle_sym_clen_s, 0).sum(-1)
-                          + rle["extra_bits"].sum(-1))
+        dyn_hdr_bits_s = hdr_s["bits"]
+        j = torch.arange(CL_CAP, device=dev)
         clen_codes_s = canonical_codes(
             clen_len_s.reshape(B * NS, 19), C.MAX_CLEN_CODE_LENGTH).view(B, NS, 19)
 
@@ -302,6 +347,8 @@ class ChunkEncoder(nn.Module):
         is_stored = (stored_bits < huff_total) | (
             (stored_bits == huff_total) & ~(~is_split & whole_fix))
         is_stored = is_stored & ~force_fix
+        if opt.special == SpecialOptions.ForceStored:  # after the force_fix mask
+            is_stored = torch.ones_like(is_stored)
         huff = ~is_stored
         data_bits = torch.where(is_stored, stored_bits, huff_total)
         btype = torch.where(
@@ -329,10 +376,8 @@ class ChunkEncoder(nn.Module):
         q_last = self.last_start[best_comp]
 
         t1v, t1b, t2v, t2b = token_fields(
-            huff.int(), torch.where(tvalid, lsym, 999).int(),
-            len_extra_n.int(), len_extra_v.int(),
-            torch.where(tvalid & is_match, dcode, 99).int(),
-            dist_extra_n.int(), dist_extra_v.int(),
+            huff.int(), lsym_eff, len_extra_n.int(), len_extra_v.int(),
+            dcode_eff, dist_extra_n.int(), dist_extra_v.int(),
             _gather_slots(l_pack_s, sid_q).int().contiguous(),
             _gather_slots(d_pack_s, sid_q).int().contiguous())
 
@@ -351,12 +396,12 @@ class ChunkEncoder(nn.Module):
         dh_b = torch.where(dyn_on[..., None], self.dh_bits, 0)
         co_v = _gather_slots(clen_in_order_s, sid_q)
         co_b = torch.where(dyn_on[..., None] & (torch.arange(19, device=dev) < hclen_q[..., None]), 3, 0)
-        rle_sym = _gather_slots(rle["sym"], sid_q)
+        rle_sym = _gather_slots(hdr_s["sym"], sid_q)
         rle_code_v = _gather_slots(clen_codes_s, sid_q).gather(-1, rle_sym)
-        rle_on = (j < _gather_slots(rle["n"], sid_q)[..., None]) & dyn_on[..., None]
+        rle_on = (j < _gather_slots(hdr_s["n"], sid_q)[..., None]) & dyn_on[..., None]
         rle_code_b = torch.where(rle_on, _gather_slots(clen_len_s, sid_q).gather(-1, rle_sym), 0)
-        rle_ex_v = _gather_slots(rle["extra_vals"], sid_q)
-        rle_ex_b = torch.where(dyn_on[..., None], _gather_slots(rle["extra_bits"], sid_q), 0)
+        rle_ex_v = _gather_slots(hdr_s["extra_vals"], sid_q)
+        rle_ex_b = torch.where(dyn_on[..., None], _gather_slots(hdr_s["extra_bits"], sid_q), 0)
         rle_v = torch.stack([rle_code_v, rle_ex_v], dim=-1).view(B, nq, 2 * CL_CAP)
         rle_b = torch.stack([rle_code_b, rle_ex_b], dim=-1).view(B, nq, 2 * CL_CAP)
 

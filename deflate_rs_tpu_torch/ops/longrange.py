@@ -4,16 +4,17 @@ Port of the Default path of ``deflate_rs_tpu/ops/longrange.py``:
 
 1. HARVEST: positions whose matcher claim hit the probe cap contribute their
    distance (``d_cand``).
-2. DOMINANTS (:func:`select_dominants`, ``sel="run"``, ``pair=True``): each
-   of ``S`` segments keeps its top ``M`` distances ranked by longest
-   contiguous run, deduplicated, live ones as a prefix of the row.
+2. DOMINANTS (:func:`select_dominants`, ``pair=True``): each of ``S``
+   segments keeps its top ``M`` distances, ranked by longest contiguous run
+   (``sel="run"``, Default) or by total count (``sel="freq"``, high), live
+   ones as a prefix of the row.
 3. MEASURE (``ops/lr_kernel.py``): the word-space run at every dominant,
    the CUDA kernel on the card and its plain twin on the CPU.
 4. EXPAND (:func:`finish_from_winner`): per-word winners become
    per-position claims, never overclaiming.
 
-The JAX package's ``global_dominant_lengths``, ``union_dominants`` and the
-``freq`` selection serve no ported preset and are not ported.
+The JAX package's ``global_dominant_lengths`` and ``union_dominants``
+(the ``lr_global`` knob) serve no preset and are not ported.
 """
 
 from __future__ import annotations
@@ -25,13 +26,23 @@ from .lr_kernel import lr_measure
 from .matching import matched_low_bytes
 
 
-def select_dominants(d_cand: torch.Tensor, S: int, M: int):
+def select_dominants(d_cand: torch.Tensor, S: int, M: int, sel: str = "run"):
     """Per-segment top-M harvested distances ``[B, S, M]`` (0 = dead slot),
-    and their run lengths.  Pair-collapsed harvest, run-length ranking."""
+    and their counts, from the pair-collapsed harvest.
+
+    ``sel="run"`` ranks a distance by its longest contiguous run in
+    position order, then drops the lower-ranked duplicates; ``sel="freq"``
+    ranks it by its total count, from runs of the value-sorted row (each
+    value is one run, so nothing needs dropping).  Live dominants form a
+    count-descending prefix of each row, ties to the larger distance."""
+    if sel not in ("run", "freq"):
+        raise ValueError(f"unknown dominant selection {sel!r}")
     B = d_cand.shape[0]
     dc0 = d_cand.reshape(B, S, -1).long()
     even, odd = dc0[..., 0::2], dc0[..., 1::2]
     rows = torch.where(even != 0, even, odd)
+    if sel == "freq":
+        rows = torch.sort(rows, dim=-1).values
     LC = rows.shape[-1]
     if LC >= (1 << 15):
         raise ValueError(
@@ -49,13 +60,14 @@ def select_dominants(d_cand: torch.Tensor, S: int, M: int):
     top = torch.sort(packed, dim=-1, descending=True).values[..., :M]
     if top.shape[-1] < M:
         top = torch.nn.functional.pad(top, (0, M - top.shape[-1]))
-    # Dedup: keep a distance's highest-ranked slot only, then re-compact so
-    # the live dominants stay a prefix.
-    v = top & 0xFFFF
-    earlier = torch.ones((M, M), dtype=torch.bool, device=dev).tril(diagonal=-1)
-    dup = ((v[..., :, None] == v[..., None, :]) & earlier).any(dim=-1)
-    top = torch.where(dup, 0, top)
-    top = torch.sort(top, dim=-1, descending=True).values
+    if sel == "run":
+        # Dedup: keep a distance's highest-ranked slot only, then re-compact
+        # so the live dominants stay a prefix.
+        v = top & 0xFFFF
+        earlier = torch.ones((M, M), dtype=torch.bool, device=dev).tril(diagonal=-1)
+        dup = ((v[..., :, None] == v[..., None, :]) & earlier).any(dim=-1)
+        top = torch.where(dup, 0, top)
+        top = torch.sort(top, dim=-1, descending=True).values
     topf = top >> 16
     return torch.where(topf > 0, top & 0xFFFF, 0).int(), topf.int()
 
@@ -93,17 +105,18 @@ def finish_from_winner(run_w, dist_w, xor_n, N: int, n_total, hstart):
 
 
 def local_dominant_lengths(buf, N: int, n_total, hstart, d_cand, *,
-                           num_dom: int, num_seg: int):
+                           num_dom: int, num_seg: int, sel: str = "run"):
     """Per-position match lengths at each segment's dominant distances.
 
     Args:
       buf: uint8[B, N + PAD] chunk buffers.
       d_cand: int32[B, N] harvested distances (0 = none).
+      sel: dominant ranking, see :func:`select_dominants`.
 
     Returns (best_len, best_dist): int32[B, N], 0 where no claim.
     """
     if N % (4 * num_seg):
         raise ValueError(f"N={N} must divide by 4 * num_seg={4 * num_seg}")
-    doms, _ = select_dominants(d_cand, num_seg, num_dom)
+    doms, _ = select_dominants(d_cand, num_seg, num_dom, sel)
     run_w, dist_w, xor_n = lr_measure(buf, doms.contiguous(), N)
     return finish_from_winner(run_w, dist_w, xor_n, N, n_total, hstart)

@@ -1,10 +1,12 @@
-"""Longest-match search by a bounded suffix sort, batched over chunks.
+"""Longest-match search, batched over chunks.
 
-Port of the Default matcher of ``deflate_rs_tpu/ops/matching.py``
-(``find_matches`` + ``sa_scan_xla`` + ``chain_extend`` + ``stride_extend``;
-the reference's hash-chain ``longest_match``, matching.rs:87).  Every
-function takes ``[B, ...]`` tensors, one row per chunk, with ``n_total`` and
-``hstart`` as per-row tensors.
+Port of ``deflate_rs_tpu/ops/matching.py``: the suffix-sort matcher of the
+Default and fast presets (``find_matches`` + ``sa_scan_xla``), the hash
+matcher of the high preset (``find_matches_hash``), the rle preset's
+distance-1 runs (``find_rle_matches``), and the shared ``chain_extend`` /
+``stride_extend`` (the reference's hash-chain ``longest_match``,
+matching.rs:87).  Every function takes ``[B, ...]`` tensors, one row per
+chunk, with ``n_total`` and ``hstart`` as per-row tensors.
 
 Positions are sorted by their first ``4*nkey`` content bytes (big-endian
 words, so unsigned word order is byte order), stably, with the position as
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import MAX_MATCH, WINDOW_SIZE
+from .hashing import INVALID_KEY, hash3
 
 _M32 = 0xFFFFFFFF
 
@@ -195,8 +198,12 @@ def find_matches(buf, N: int, n_total, hstart, num_checks: int,
     spos = perm.int()
     best = sa_scan(skeys, spos, spay, hstart, n_total, num_checks,
                    probe_words, tail_jumps=tail_jumps)
+    return _unsort_and_extend(best, perm, limit, N)
 
-    # ------------------------------------------------ unsort + chain extend
+
+def _unsort_and_extend(best, perm, limit, N: int):
+    """Scores per sorted row -> (best_len, best_dist) per position, chain-
+    and stride-extended.  The unsort is an inverse-permutation scatter."""
     score_pos = torch.zeros_like(best).scatter_(1, perm, best)
     blen = torch.minimum(score_pos >> 16, limit)
     bdist = torch.where(score_pos > 0, WINDOW_SIZE + 1 - (score_pos & 0xFFFF), 0)
@@ -204,3 +211,92 @@ def find_matches(buf, N: int, n_total, hstart, num_checks: int,
     best_len = stride_extend(chain_extend(blen, bdist, limit, N), bdist, limit)
     good = best_len >= 3
     return torch.where(good, best_len, 0), torch.where(good, bdist, 0)
+
+
+def probe_schedule(K: int, dense_frac: float = 0.875, growth: float = 0.04) -> list:
+    """Chain depths probed by :func:`find_matches_hash` (the JAX package's
+    ``_probe_schedule``): the first ``dense_frac`` of the budget walks the
+    most recent rows densely, the rest at spacing growing by ``growth``."""
+    ks, k = [], 1
+    while len(ks) < K:
+        ks.append(k)
+        k += 1 if len(ks) < int(dense_frac * K) else max(1, int(k * growth))
+    return ks
+
+
+def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the same bit patterns as int32."""
+    return (x - ((x >> 31) << 32)).int()
+
+
+def find_matches_hash(buf, N: int, n_total, hstart, num_checks: int, probe_words: int):
+    """Best (length, distance) per position by hash chains (high preset).
+
+    Positions are sorted stably by their 3-byte hash, so the rows above a
+    row with the same key are its most recent same-hash predecessors.  For
+    each depth of :func:`probe_schedule` every row compares its
+    ``probe_words`` packed words with the row that far above it: some
+    twenty elementwise ops per depth over the sorted ``[W, B, N]`` words
+    and a shifted view of them (no per-candidate gathers), the probe length
+    taken from the first differing word.
+
+    Args/returns as :func:`find_matches`.
+    """
+    dev = buf.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    nt = n_total.int()[:, None]
+    limit = (nt - idx).clamp(0, MAX_MATCH)
+    hashable = (idx >= hstart.int()[:, None]) & (idx <= nt - 3)
+    keys = torch.where(hashable, hash3(buf, N), INVALID_KEY)
+
+    packed = _as_int32_bits(pack_words(buf))
+    _, perm = torch.sort(keys, dim=1, stable=True)
+    skey = keys.gather(1, perm)
+    spos = perm.int()
+    W = probe_words
+    # Probe words of the sorted rows, [W + 1, B, N]; row W is a sentinel
+    # (0 here, 1 in the shifted copy) that differs for every pair.
+    sprobe = torch.stack([packed[:, 4 * w : N + 4 * w].gather(1, perm) for w in range(W)]
+                         + [torch.zeros_like(spos)])
+
+    ks = probe_schedule(num_checks)
+    KMAX = ks[-1]
+    valid_row = skey < INVALID_KEY
+    # KMAX rows of padding above row 0: a key that matches nothing,
+    # position 0 and zero probe words.
+    skey_ext = torch.nn.functional.pad(skey, (KMAX, 0), value=INVALID_KEY + 1)
+    spos_ext = torch.nn.functional.pad(spos, (KMAX, 0))
+    sprobe_ext = torch.nn.functional.pad(sprobe, (KMAX, 0))  # [W + 1, B, KMAX + N]
+    sprobe_ext[W] = 1
+    # Word w of a differing pair scores W + 1 - w: the largest score marks
+    # the first differing word (a max over words, cheaper than argmax).
+    rank = torch.arange(W + 1, 0, -1, dtype=torch.uint8, device=dev)[:, None, None]
+
+    best = torch.zeros_like(spos)
+    for k in ks:
+        s = KMAX - k
+        dist = spos - spos_ext[:, s : s + N]
+        ok = (skey == skey_ext[:, s : s + N]) & valid_row & (dist <= WINDOW_SIZE)
+        # Probe length: 4 bytes per leading equal word, then the matched
+        # low bytes of the first differing word (the sentinel adds none).
+        other = sprobe_ext[:, :, s : s + N]
+        lead = (W + 1) - ((sprobe != other).view(torch.uint8) * rank).amax(dim=0).long()
+        first = sprobe.gather(0, lead[None])[0] ^ other.gather(0, lead[None])[0]
+        lp = (4 * lead.int() + ((first & 0xFF) == 0).int() + ((first & 0xFFFF) == 0).int()
+              + ((first & 0xFFFFFF) == 0).int())
+        score = torch.where(ok & (lp >= 3), (lp << 16) | (WINDOW_SIZE + 1 - dist), 0)
+        best = torch.maximum(best, score)
+    return _unsort_and_extend(best, perm, limit, N)
+
+
+def find_rle_matches(buf, n_total, hstart, N: int):
+    """Distance-1 run matches only (the reference's RLE mode, rle.rs:23-63)."""
+    dev = buf.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    nt = n_total.int()[:, None]
+    eq = torch.nn.functional.pad(buf[:, 1:N] == buf[:, : N - 1], (1, 0))
+    eq = eq & (idx - 1 >= hstart.int()[:, None]) & (idx < nt)
+    next_break = _rev_cummin(torch.where(eq, N + MAX_MATCH, idx))
+    length = torch.minimum(next_break - idx, (nt - idx).clamp(0, MAX_MATCH))
+    best_len = torch.where(length >= 3, length, 0)
+    return best_len, (best_len > 0).int()

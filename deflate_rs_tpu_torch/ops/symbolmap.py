@@ -3,8 +3,9 @@
 Port of ``deflate_rs_tpu/ops/symbolmap.py``.  DEFLATE code ranges are
 power-of-two buckets, so the code index is a function of the value's bit
 length, read exactly from the float32 exponent (values < 2**24).  The JAX
-package's one-hot ``histogram_onehot`` and ``table_lookup`` become
-``scatter_add`` and direct indexing in ``ops/chunk_encode.py``.
+package's one-hot ``histogram_onehot`` and ``table_lookup`` become the
+quarter histograms of ``ops/hist_kernel.py`` and direct indexing in
+``ops/field_kernel.py``.
 """
 
 from __future__ import annotations

@@ -7,6 +7,9 @@ import pytest
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# The suite runs several workers on one machine: one intra-op thread per
+# worker keeps the port's many small ops from oversubscribing the cores.
+torch.set_num_threads(1)
 
 from deflate_rs_tpu import CompressionOptions as JOpts  # noqa: E402
 from deflate_rs_tpu.ops.chunk_encode import get_chunk_encoder  # noqa: E402

@@ -11,7 +11,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from deflate_rs_tpu_torch.ops import field_kernel, lr_kernel, parse_scan, pm_kernel  # noqa: E402
+from deflate_rs_tpu_torch.ops import (  # noqa: E402
+    field_kernel, hist_kernel, lr_kernel, parse_scan, pm_kernel,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +33,8 @@ def _same(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
-@pytest.mark.parametrize("N,S,M", [(98304, 64, 48), (36864, 64, 48), (4096, 8, 6)])
+@pytest.mark.parametrize("N,S,M", [(98304, 64, 48), (36864, 64, 48), (4096, 8, 6),
+                                   (98304, 32, 48), (36864, 32, 48)])
 def test_lr_measure(dev, N, S, M):
     rng = np.random.default_rng(N)
     B = 3
@@ -74,7 +77,7 @@ def test_package_merge(dev, max_len, A):
     _same(pm_kernel.lengths_by_rank(x, max_len), pm_kernel.lengths_by_rank_plain(x, max_len))
 
 
-@pytest.mark.parametrize("E,nq", [(4096, 8), (65536, 8), (2048, 1)])
+@pytest.mark.parametrize("E,nq", [(4096, 8), (65536, 8), (2048, 1), (65536, 1), (4096, 4)])
 def test_token_fields(dev, E, nq):
     rng = np.random.default_rng(E + nq)
     B = 3
@@ -93,3 +96,20 @@ def test_token_fields(dev, E, nq):
     ]
     t = [torch.from_numpy(a).to(dev) for a in args]
     _same(field_kernel.token_fields(*t), field_kernel.token_fields_plain(*t))
+
+
+@pytest.mark.parametrize("E", [4096, 65536])
+@pytest.mark.parametrize("nq", [1, 4, 8])
+def test_quarter_hist(dev, E, nq):
+    rng = np.random.default_rng(E + nq)
+    B = 5
+    lsym = rng.integers(0, 286, (B, E)).astype(np.int32)
+    lsym[rng.random((B, E)) < 0.3] = 999
+    lsym[rng.random((B, E)) < 0.02] = -7
+    lsym[1] = 32  # one symbol everywhere: worst-case atomic contention
+    dcode = rng.integers(0, 30, (B, E)).astype(np.int32)
+    dcode[rng.random((B, E)) < 0.6] = 99
+    dcode[rng.random((B, E)) < 0.02] = 30
+    ls, dc = torch.from_numpy(lsym).to(dev), torch.from_numpy(dcode).to(dev)
+    _same(hist_kernel.quarter_histograms(ls, dc, nq),
+          hist_kernel.quarter_histograms_plain(ls, dc, nq))

@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 
 pytest.importorskip("jax")
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# The suite runs several workers on one machine: one intra-op thread per
+# worker keeps the port's many small ops from oversubscribing the cores.
+torch.set_num_threads(1)
 
 import deflate_rs_tpu as dj  # noqa: E402
 import deflate_rs_tpu_torch as dt  # noqa: E402
@@ -39,6 +42,9 @@ def _inputs():
         "tier_edge_4097": pg[:4097],
         "random_64k": rng.integers(0, 256, 65536, dtype=np.uint8).tobytes(),
         "zeros": bytes(150_000),
+        # One chunk whose block split turns on the exact power-of-two ratios
+        # where the JAX package's float32 proxy rounds up (ops/proxy.py).
+        "pg11_proxy_roundup": pg[49822 : 49822 + 65536],
     }
     for p in AFL:
         with open(p, "rb") as f:

@@ -5,6 +5,9 @@ import pytest
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# The suite runs several workers on one machine: one intra-op thread per
+# worker keeps the port's many small ops from oversubscribing the cores.
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 

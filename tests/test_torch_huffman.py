@@ -8,6 +8,9 @@ import pytest
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# The suite runs several workers on one machine: one intra-op thread per
+# worker keeps the port's many small ops from oversubscribing the cores.
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -77,3 +80,35 @@ def test_canonical_codes_equal(max_len, A):
     want = jax.vmap(functools.partial(j_canon, max_len=max_len))(jnp.asarray(lengths))
     got = canonical_codes(torch.from_numpy(lengths), max_len)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+def test_exact_scoring_chunk_encoder_equals_encode_chunk():
+    """The exact-scoring branch (high, rle and huffman_only use it): every
+    output field of ``ChunkEncoder`` equals JAX ``encode_chunk`` on the
+    crafted 4 KiB-tier chunks, at nq = 8 (36 ranges, 72 package-merge rows
+    per chunk)."""
+    from test_torch_chunk_encode import EMIT, _buffers, _crafted
+
+    from deflate_rs_tpu import CompressionOptions as JOpts
+    from deflate_rs_tpu.ops.chunk_encode import get_chunk_encoder
+    from deflate_rs_tpu_torch import CompressionOptions as TOpts
+    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+
+    cases = _crafted()
+    bufs, hist, ns, last = _buffers(cases)
+    t_opts, j_opts = TOpts(split_scoring="exact"), JOpts(split_scoring="exact")
+    assert t_opts.exact_split_scoring and t_opts.num_quarters == 8
+    with torch.no_grad():
+        got = ChunkEncoder(t_opts, EMIT)(torch.from_numpy(bufs), torch.from_numpy(hist),
+                                         torch.from_numpy(ns), torch.from_numpy(last))
+    jenc = get_chunk_encoder(j_opts, EMIT, with_checksums=False)
+    btypes = set()
+    for i in range(len(cases)):
+        want = jenc(bufs[i], np.int32(hist[i]), np.int32(ns[i]), np.bool_(last[i]))
+        for k in ("total_bits", "data_bits", "btype", "ntokens"):
+            assert int(got[k][i]) == int(want[k]), (i, k)
+        np.testing.assert_array_equal(got["words"][i].numpy(),
+                                      np.asarray(want["words"]).astype(np.int64),
+                                      err_msg=f"chunk {i}")
+        btypes.add(int(want["btype"]))
+    assert btypes == {0, 1, 2, 3}, btypes

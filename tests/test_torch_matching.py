@@ -8,6 +8,9 @@ import pytest
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# The suite runs several workers on one machine: one intra-op thread per
+# worker keeps the port's many small ops from oversubscribing the cores.
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -115,6 +118,64 @@ def test_dominants_and_local_lengths_equal(name, noise):
                                      torch.tensor([hs]), dc, num_dom=48, num_seg=64)
     np.testing.assert_array_equal(got[0][0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("name", ["pg11_full", "tier4k"])
+def test_freq_dominants_and_local_lengths_equal(name):
+    """The high preset's long-range pass: freq selection at S = 32."""
+    buf, N, nt, hs, dc = _harvest(name, True)
+    jd, jf = jlr._select_dominants(jnp.asarray(dc[0].numpy()), 32, 48, 1, sel="freq", pair=True)
+    td, tf = tlr.select_dominants(dc, 32, 48, "freq")
+    np.testing.assert_array_equal(td[0].numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(tf[0].numpy(), np.asarray(jf))
+    want = jlr.local_dominant_lengths(
+        jnp.asarray(buf), N, jnp.int32(nt), jnp.int32(hs), jnp.asarray(dc[0].numpy()),
+        num_dom=48, num_seg=32, harvest_stride=1, sel="freq", pair=True)
+    got = tlr.local_dominant_lengths(torch.from_numpy(buf)[None], N, torch.tensor([nt]),
+                                     torch.tensor([hs]), dc, num_dom=48, num_seg=32, sel="freq")
+    np.testing.assert_array_equal(got[0][0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
+
+
+# 4 KiB-tier chunks for the hash and rle matchers: fresh, with history, runs.
+TIER4K = {
+    "fresh": (CASES["pg11_first"][0], 0, 4000),
+    "history": (CASES["pg11_first"][0], 70001, 4096),
+    "runs": (CASES["runs"][0], 5000, 4096),
+}
+
+
+def _tier4k(name):
+    data, off, ln = TIER4K[name]
+    buf, nt, hs = _chunk(data, off, ln, 4096)
+    return buf, HALO + 4096, nt, hs
+
+
+def test_probe_schedule_equal():
+    for K in (1, 16, 128, 256):
+        assert tm.probe_schedule(K) == jm._probe_schedule(K)
+
+
+@pytest.mark.parametrize("name", ["fresh", "history"])
+def test_find_matches_hash_equal(name):
+    buf, N, nt, hs = _tier4k(name)
+    jl, jd = jax.jit(lambda b, nt, hs: jm.find_matches_hash(b, N, nt, hs, 256, probe_words=16))(
+        buf, np.int32(nt), np.int32(hs))
+    tl, td = tm.find_matches_hash(torch.from_numpy(buf)[None], N, torch.tensor([nt]),
+                                  torch.tensor([hs]), 256, 16)
+    np.testing.assert_array_equal(tl[0].numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(td[0].numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("name", list(TIER4K))
+def test_find_rle_matches_equal(name):
+    buf, N, nt, hs = _tier4k(name)
+    jl, jd = jax.jit(lambda b, nt, hs: jm.find_rle_matches(b, nt, hs, N))(
+        buf, np.int32(nt), np.int32(hs))
+    tl, td = tm.find_rle_matches(torch.from_numpy(buf)[None], torch.tensor([nt]),
+                                 torch.tensor([hs]), N)
+    np.testing.assert_array_equal(tl[0].numpy(), np.asarray(jl))
+    np.testing.assert_array_equal(td[0].numpy(), np.asarray(jd))
 
 
 def test_lr_measure_batched_rows_independent():

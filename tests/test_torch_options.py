@@ -1,16 +1,21 @@
 """The PyTorch port's constants, options and split tables against the JAX
-package, its import isolation from jax, and its scope guard."""
+package, its import isolation from jax, its scope guard, and every preset
+and force mode at the 4 KiB tier against JAX."""
 
 import dataclasses
 import os
 import subprocess
 import sys
+import zlib
 
 import numpy as np
 import pytest
 
 pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# The suite runs several workers on one machine: one intra-op thread per
+# worker keeps the port's many small ops from oversubscribing the cores.
+torch.set_num_threads(1)
 
 import deflate_rs_tpu.constants as jc  # noqa: E402
 import deflate_rs_tpu_torch.constants as tc  # noqa: E402
@@ -53,10 +58,13 @@ def test_split_cfg_arrays_equal(nq):
     j = jce._SplitCfg(nq)
     t = tce.SplitCfg(nq)
     assert t.ranges == j.ranges and t.comps == j.comps
-    for name in ("hdr_start", "blk_end", "last_start", "slotq", "mem", "exist", "comp_ranges"):
+    for name in ("hdr_start", "blk_end", "last_start", "slotq", "mem", "exist", "rid_t",
+                 "comp_ranges"):
         np.testing.assert_array_equal(getattr(t, name), getattr(j, name), err_msg=name)
+    assert t.range_id == j.range_id
     for emit in (4096, 65536):
         assert tce.out_words(emit) == jce.out_words(emit, force_fixed=False)
+        assert tce.out_words(emit, force_fixed=True) == jce.out_words(emit, force_fixed=True)
 
 
 def test_encoder_buffers_move_with_module():
@@ -88,18 +96,48 @@ def test_no_jax_import_in_port_sources():
                         assert not s.startswith(("import jax", "from jax")), (f, s)
 
 
-@pytest.mark.parametrize("preset", ["high", "fast", "huffman_only", "turbo", "rle"])
-def test_non_default_presets_raise(preset):
+def _pg11_4k() -> bytes:
+    with open(os.path.join(REPO, "tests", "data", "pg11.txt"), "rb") as f:
+        return f.read(4096)
+
+
+def _equal_jax(data: bytes, t_opts, j_opts):
+    import deflate_rs_tpu as dj
     import deflate_rs_tpu_torch as dt
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dt.deflate_bytes_conf(b"hello hello hello", getattr(TOpts, preset)(), device="cpu")
+    got = dt.deflate_bytes_conf(data, t_opts, device="cpu")
+    assert got == dj.deflate_bytes_conf(data, j_opts), len(data)
+    assert zlib.decompress(got, -15) == data
+
+
+@pytest.mark.parametrize("preset", ["high", "fast", "huffman_only", "turbo", "rle"])
+def test_non_default_presets_raise(preset):
+    """The scope guard once refused these presets.  Each now runs and equals
+    JAX on a short input and on a full chunk of the 4 KiB tier."""
+    for data in (b"hello hello hello", _pg11_4k()):
+        _equal_jax(data, getattr(TOpts, preset)(), getattr(JOpts, preset)())
 
 
 @pytest.mark.parametrize("special", ["ForceFixed", "ForceStored"])
 def test_force_modes_raise(special):
+    """The scope guard once refused the force modes.  Each now runs and
+    equals JAX at the 4 KiB tier: empty, 1-, 3- and 4-byte inputs (the
+    encoder pins fixed codes at n <= 4), text and incompressible bytes."""
+    import deflate_rs_tpu as dj
     import deflate_rs_tpu_torch as dt
 
-    opts = TOpts(special=dt.SpecialOptions[special])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dt.deflate_bytes_conf(b"abc", opts, device="cpu")
+    rand = np.random.default_rng(8).integers(0, 256, 4096, dtype=np.uint8).tobytes()
+    for data in (b"", b"\x7f", b"abc", b"\xff\x00\x90\x91", _pg11_4k(), rand):
+        _equal_jax(data, TOpts(special=dt.SpecialOptions[special]),
+                   JOpts(special=dj.SpecialOptions[special]))
+
+
+@pytest.mark.parametrize("knob", [{"lr_global": 64}, {"lr_stride": 2}])
+def test_unported_long_range_knobs_raise(knob):
+    import deflate_rs_tpu_torch as dt
+
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+        dt.deflate_bytes_conf(b"hello hello hello", TOpts(**knob), device="cpu")
+    # The knobs are inert where the long-range pass does not run (fast).
+    dt.deflate_bytes_conf(b"hello hello hello", dataclasses.replace(TOpts.fast(), **knob),
+                          device="cpu")
