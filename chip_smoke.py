@@ -13,8 +13,16 @@ Phases (each prints a line; any failure exits non-zero):
    the card, in both emit tiers (4 KiB and 64 KiB), on inputs harvested
    from the encoders' own runs over 32 chunks of the mix below: Default
    (every kernel; quarter histograms at nq = 8), fast (nq = 1), rle
-   (nq = 4) and high (lr_measure at 32 segments).  Exact equality is
-   required.  Prints kernel and plain times (CUDA events).
+   (nq = 4) and high (lr_measure at 32 segments, package-merge at its
+   2,304 rows).  Exact equality is required.  Then the adversarial
+   operands of ``deflate_rs_tpu_torch/utils/kernel_cases.py`` go through
+   ``parse_scan`` and ``package_merge`` and their plain versions, exact
+   equality again.  Prints per kernel: its time (CUDA events around replays
+   of a CUDA graph of 20 calls of the wrapper, so the card's time without
+   the host's launch cost; the eager loop's time beside it), the plain
+   version's time, the bound computed from the operands just timed, and for
+   the quarter histograms the time of one ``torch.bincount`` over
+   precomputed offsets (a yardstick the port never calls).
 3. default: ``deflate_bytes``, ``deflate_bytes_zlib`` and
    ``deflate_bytes_gzip`` on a 16 MiB mix (pg11 text, structured records,
    random bytes, runs); each output must round-trip through stdlib
@@ -26,6 +34,15 @@ Phases (each prints a line; any failure exits non-zero):
    round-tripping; high and fast on the 16 MiB mix, timed warm, in all
    three framings, CUDA bytes equal to the CPU port's on its first 1 MiB;
    every kernel's launch counter must move during the timed high run.
+
+The bound of a kernel is the larger of two times: its operands' bytes (each
+input read once, each output written once) over 3.35 TB/s, and its integer
+operations over 16.75 T op/s (the card's 67 TFLOP/s of float32 counts an FMA
+as two on 128 lanes per SM; int32 has 64 lanes and counts one).  Operations
+counted, from the data of the run: parse_scan 2 per token of the result;
+package_merge 3 per live leaf and level (a merge of about 2m entries and m
+pair sums); lr_measure 8 per word and live dominant; token_fields 10 and
+quarter_hist 2 per position.
 
 The last two lines are a JSON object describing the kernels and the
 ``{"ok": true, "device": ...}`` line.
@@ -44,6 +61,8 @@ import zlib
 HERE = os.path.dirname(os.path.abspath(__file__))
 MIX_BYTES = 16 << 20
 BATCH = 32
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+INT32_OPS_PER_S = 67e12 / 4  # see the module docstring
 
 
 def build_mix(total_bytes: int, text: bytes):
@@ -75,6 +94,64 @@ def cuda_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Per-call ms of a kernel wrapper on the card alone: CUDA events around
+    replays of a CUDA graph that holds ``reps`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, replays) / reps
+
+
+def bound_of(key: str, args, outs) -> tuple:
+    """(bytes_ms, operations_ms) of one call: see the module docstring."""
+    import torch
+
+    from deflate_rs_tpu_torch.ops.pm_kernel import BIG
+
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*args, *outs) if torch.is_tensor(t))
+    if key.startswith("parse_scan"):
+        ops = 2 * int(outs[0].sum())
+    elif key.startswith("lengths_by_rank"):
+        leaf, max_len = args
+        ops = 3 * (max_len - 1) * int((leaf < BIG).sum())
+    elif key.startswith("lr_measure"):
+        ops = 8 * int((args[1] > 0).sum()) * outs[0].shape[-1]
+    elif key.startswith("token_fields"):
+        ops = 10 * args[1].numel()
+    elif key.startswith("quarter_hist"):
+        ops = 2 * args[0].numel()
+    else:
+        raise KeyError(key)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+
+
+def bincount_yardstick(args, outs):
+    """One ``torch.bincount`` that computes the quarter histograms from flat
+    offsets made beforehand; returns (ms, agrees with ``outs``)."""
+    import torch
+
+    lsym, dcode, nq = args
+    B, E = lsym.shape
+    nl, nd = outs[0].shape[-1], outs[1].shape[-1]
+    q = torch.arange(E, device=lsym.device) // (E // nq)
+    b = torch.arange(B, device=lsym.device)[:, None]
+    trash = B * nq * (nl + nd)
+    off_l = torch.where((lsym >= 0) & (lsym < nl), (b * nq + q) * nl + lsym, trash)
+    off_d = torch.where((dcode >= 0) & (dcode < nd), B * nq * nl + (b * nq + q) * nd + dcode, trash)
+    flat = torch.cat([off_l.reshape(-1), off_d.reshape(-1)])
+    counts = torch.bincount(flat, minlength=trash + 1)
+    same = (torch.equal(counts[: B * nq * nl].view(B, nq, nl), outs[0].long())
+            and torch.equal(counts[B * nq * nl : trash].view(B, nq, nd), outs[1].long()))
+    return cuda_ms(lambda: torch.bincount(flat, minlength=trash + 1), 20), same
 
 
 def harvest(encoder, bufs, hist, ns, last):
@@ -156,6 +233,7 @@ def main() -> int:
                                           pm_kernel)
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
     from deflate_rs_tpu_torch.runtime import cuda
+    from deflate_rs_tpu_torch.utils import kernel_cases
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -199,6 +277,7 @@ def main() -> int:
         "quarter_hist_nq1": quarter_hist_plain,
         "quarter_hist_nq4": quarter_hist_plain,
         "lr_measure_s32": lambda a: lr_kernel.lr_measure_plain(*a),
+        "lengths_by_rank_15_high": lambda a: pm_kernel.lengths_by_rank_plain(*a),
     }
     kern = {
         "lr_measure": lambda a: lr_kernel.lr_measure(*a),
@@ -210,6 +289,7 @@ def main() -> int:
         "quarter_hist_nq1": quarter_hist_kernel,
         "quarter_hist_nq4": quarter_hist_kernel,
         "lr_measure_s32": lambda a: lr_kernel.lr_measure(*a),
+        "lengths_by_rank_15_high": lambda a: pm_kernel.lengths_by_rank(*a),
     }
     # Which encoder's run supplies each kernel's inputs: (preset, recorded key).
     source = {
@@ -222,6 +302,7 @@ def main() -> int:
         "quarter_hist_nq1": ("fast", "quarter_histograms"),
         "quarter_hist_nq4": ("rle", "quarter_histograms"),
         "lr_measure_s32": ("high", "lr_measure"),
+        "lengths_by_rank_15_high": ("high", "lengths_by_rank_15"),
     }
     harvest_opts = {"default": O.default(), "fast": O.fast(), "rle": O.rle(), "high": O.high()}
     results = {}
@@ -250,16 +331,43 @@ def main() -> int:
             err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                       for g, w in zip(got, want))
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
-            k_ms = cuda_ms(lambda: kern[key](args))
+            k_ms = kernel_ms(lambda: kern[key](args))
+            e_ms = cuda_ms(lambda: kern[key](args), 50)
             p_ms = cuda_ms(lambda: plain[key](args))
+            bytes_ms, ops_ms = bound_of(key, args, got)
+            lib_ms = None
+            if key.startswith("quarter_hist"):
+                lib_ms, same = bincount_yardstick(args, got)
+                if not same:
+                    raise SystemExit(f"{key}: the bincount yardstick computes another function")
             print(f"kernel {key} ({preset}) emit={emit} shapes={shapes}: max_abs_err={err} "
-                  f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms")
+                  f"kernel {k_ms:.4f} ms (eager loop {e_ms:.4f}) plain {p_ms:.4f} ms "
+                  f"bound {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f}, operations "
+                  f"{ops_ms:.5f})" + (f" bincount {lib_ms:.4f} ms" if lib_ms is not None else ""))
             if err != 0:
                 raise SystemExit(f"kernel {key} disagrees with its plain version at emit={emit}")
             r = results.setdefault(key, {"max_abs_err": 0})
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if emit == 65536:
-                r["ms"], r["plain_ms"] = k_ms, p_ms
+                r.update(ms=k_ms, eager_ms=e_ms, plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                         library_ms=lib_ms)
+
+    # Adversarial operands: exact equality with the plain versions.
+    for E, B, seed in kernel_cases.PARSE_CASES:
+        steps, n = kernel_cases.parse_scan_batch(E, B, seed)
+        st, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+        if not torch.equal(parse_scan.parse_scan(st, nn), parse_scan.parse_scan_plain(st, nn)):
+            raise SystemExit(f"parse_scan disagrees on the adversarial case E={E} B={B} seed={seed}")
+    pm_cases = kernel_cases.package_merge_cases()
+    for name, freqs, max_len in pm_cases:
+        leaf = torch.from_numpy(kernel_cases.sorted_leaves(freqs)).to(dev)
+        got = pm_kernel.lengths_by_rank(leaf, max_len)
+        if got.shape != leaf.shape or (leaf.numel() and not torch.equal(
+                got, pm_kernel.lengths_by_rank_plain(leaf, max_len))):
+            raise SystemExit(f"package_merge disagrees on the adversarial case {name}")
+    torch.cuda.synchronize()
+    print(f"kernels: adversarial cases equal the plain versions exactly: parse_scan "
+          f"{len(kernel_cases.PARSE_CASES)}, package_merge {len(pm_cases)}")
     print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------ default path
@@ -272,7 +380,7 @@ def main() -> int:
     if dt.deflate_bytes(head, device="cuda") != dt.deflate_bytes(head, device="cpu"):
         raise SystemExit("mix[:1 MiB]: CUDA bytes differ from the CPU port's")
     print("default: pg11 -> 60196 B; CUDA bytes == CPU port bytes on pg11 and mix[:1 MiB]")
-    timed_run(dt, cuda, mix, O.default(), "default")
+    launches = {"default": timed_run(dt, cuda, mix, O.default(), "default")}
     print(f"default: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------- other presets
@@ -283,7 +391,6 @@ def main() -> int:
         if zlib.decompress(got, -15) != pg11:
             raise SystemExit(f"{name}: pg11 stream does not round-trip")
         print(f"presets: {name} pg11 -> {len(got)} B, CUDA bytes == CPU port bytes, round-trips")
-    launches = {}
     for name in ("fast", "high"):
         o = presets[name]
         if dt.deflate_bytes_conf(head, o, device="cuda") != dt.deflate_bytes_conf(head, o, device="cpu"):
@@ -302,7 +409,7 @@ def main() -> int:
                        ["parse_scan"], ["parse_scan"]),
         "package_merge": ("deflate_rs_tpu_torch/csrc/package_merge.cu",
                           "deflate_rs_tpu/ops/pm_kernel.py:57",
-                          ["lengths_by_rank_15", "lengths_by_rank_7"],
+                          ["lengths_by_rank_15", "lengths_by_rank_7", "lengths_by_rank_15_high"],
                           ["lengths_by_rank_15", "lengths_by_rank_7"]),
         "token_fields": ("deflate_rs_tpu_torch/csrc/token_fields.cu",
                          "deflate_rs_tpu/ops/field_kernel.py:33", ["token_fields"], ["token_fields"]),
@@ -313,15 +420,31 @@ def main() -> int:
     }
     rows = []
     for name, (src, rep, checked, timed) in sources.items():
+        # A batch of Default calls every key of ``timed`` once: the sums are
+        # the kernel's cost per batch of 32 chunks.
+        bytes_ms = sum(results[k]["bytes_ms"] for k in timed)
+        ops_ms = sum(results[k]["ops_ms"] for k in timed)
+        lib = [results[k]["library_ms"] for k in timed]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches["high"][name],
+            "launches": launches["default"][name],
+            "launches_default": launches["default"][name],
+            "launches_high": launches["high"][name],
             "max_abs_err": max(results[k]["max_abs_err"] for k in checked),
             "ms": sum(results[k]["ms"] for k in timed),
+            "eager_ms": sum(results[k]["eager_ms"] for k in timed),
             "plain_ms": sum(results[k]["plain_ms"] for k in timed),
+            "bound_ms": sum(max(results[k]["bytes_ms"], results[k]["ops_ms"]) for k in timed),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None if None in lib else sum(lib),
         })
-    print(f"done in {time.perf_counter() - t_start:.1f} s; kernels row: launches from the "
-          "timed high run, ms / plain_ms at the 64 KiB tier on Default's inputs")
+    high_pm = results["lengths_by_rank_15_high"]
+    print(f"package_merge at high's shape: kernel {high_pm['ms']:.4f} ms plain "
+          f"{high_pm['plain_ms']:.4f} ms bound {max(high_pm['bytes_ms'], high_pm['ops_ms']):.5f} ms")
+    print(f"done in {time.perf_counter() - t_start:.1f} s; kernels row: launches of the timed "
+          "Default run (the main path) and of the timed high run, 8 batches of 32 chunks each; "
+          "ms (CUDA-graph replay), eager_ms, plain_ms, bound_ms at the 64 KiB tier on "
+          "Default's inputs")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

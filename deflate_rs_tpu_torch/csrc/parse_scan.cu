@@ -5,88 +5,250 @@
 // Plain twin: deflate_rs_tpu_torch/ops/parse_scan.py::parse_scan_plain.
 //
 // The parse is the orbit of position 0 under next[i] = i + steps[i], cut at
-// n.  One block per chunk, the chunk's steps held as uint16 in shared memory
-// (64 Ki x 2 B = 128 KiB at the 64 KiB tier).  Phase 1: each of 256 threads
-// parses its own segment hypothetically from the segment's first position.
-// Phase 2: one thread walks the segments in order, entering each at the
-// previous segment's true exit and marking positions until it lands on a
-// hypothesis token; from there the two parses coincide (next[] is
-// deterministic).  Phase 3 writes the mask.
+// n.  One block per chunk; the chunk is cut into segments of 64 positions,
+// one thread each, so a segment's marks are one 64-bit word that only its
+// thread writes.
 //
-// Bound on the card: the serial phase-2 walk, usually a few steps per
-// segment but up to a whole segment where hypotheses never converge, on one
-// thread per chunk; one block per chunk also leaves most SMs idle below
-// ~132 chunks per call.
+// Bound on the card: bytes.  The function reads 4 B and writes 1 B per
+// position (10.5 MB at 32 chunks of 64 KiB, about 3 us at 3.35 TB/s); the
+// orbit itself is a serial chain of dependent loads, so the design's work is
+// to keep that chain short:
+//
+//   load    16-byte loads of the int32 steps, held as uint16 in shared
+//           memory with one pad word per segment, so that threads walking
+//           their segments in step hit different banks.
+//   phase 1 every thread parses its segment from the segment's first
+//           position (the hypothesis): marks in a register, exit in shared
+//           memory.
+//   phase 2 speculation: every thread walks its segment again from the
+//           previous segment's hypothesis exit until it lands on a
+//           hypothesis mark (the two parses coincide from there on, next[]
+//           being a function) or leaves the segment; that gives the
+//           segment's exit under this entry.  Where the predecessor's exit
+//           under its own assumed entry is the one assumed here, and so on
+//           down to segment 0 (which enters at 0), the walk is the true one.
+//   repair  one thread reads the "entry differs from the predecessor's exit"
+//           flags (a ballot word per warp).  Up to the first flag every
+//           segment is true; from there it follows the true parse position
+//           by position, discarding the marks of the segments it passes,
+//           until it lands on a hypothesis mark of a segment whose successor
+//           assumed just that exit; then it skips to the next flag.
+//           Hypotheses that never converge (runs of maximal matches) leave
+//           this walk serial, one step per token, and right.
+//   store   16 mask bytes per thread per turn, expanded from the bit words.
+//
+// A thread-block cluster sharing one chunk (2, 4 or 8 blocks, each holding
+// a slice of the steps and handing the repair on through distributed shared
+// memory) was built and timed: within 6 % of one block at 32 chunks, the
+// cluster barriers costing about what the shorter phases save.  It was not
+// kept.  Nor were
+// further rounds of phase 2 (re-walking the segments whose predecessor's exit
+// moved, up to four times, before the repair): equal on text, slower on
+// operands that do not converge.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kSegs = 256;
+constexpr int kSeg = 64;         // positions per segment (one mark word)
+constexpr int kSegWords = 33;    // 32 words of uint16 steps + 1 pad word
+constexpr int kNone = 64;        // "no convergence inside the segment"
 
+struct Smem {
+    unsigned long long* hyp;     // [S] hypothesis marks
+    unsigned long long* fix;     // [S] fix-up marks
+    uint32_t* st;                // [S * kSegWords] steps as uint16 pairs
+    int* hexit;                  // [S] hypothesis exit (chunk position)
+    int* exit;                   // [S] exit under the assumed entry
+    int* entry;                  // [S] the assumed entry
+    uint32_t* broken;            // [S / 32 rounded up] ballot words
+    uint8_t* conv;               // [S] convergence offset, kNone if none
+};
+
+inline size_t smem_bytes(int S) {
+    return (size_t)S * (8 + 8 + 4 * kSegWords + 4 + 4 + 4 + 1) + (S + 31) / 32 * 4 + 16;
+}
+
+__device__ inline Smem carve(unsigned char* base, int S) {
+    Smem s;
+    s.hyp = reinterpret_cast<unsigned long long*>(base);
+    s.fix = s.hyp + S;
+    s.st = reinterpret_cast<uint32_t*>(s.fix + S);
+    s.hexit = reinterpret_cast<int*>(s.st + (size_t)S * kSegWords);
+    s.exit = s.hexit + S;
+    s.entry = s.exit + S;
+    s.broken = reinterpret_cast<uint32_t*>(s.entry + S);
+    s.conv = reinterpret_cast<uint8_t*>(s.broken + (S + 31) / 32);
+    return s;
+}
+
+__device__ __forceinline__ int step_at(const uint32_t* st, int p) {
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(st);
+    return h[(p >> 6) * (2 * kSegWords) + (p & 63)];
+}
+
+__device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
+    // 4 bits -> 4 bytes of 0/1.
+    return (nibble * 0x00204081u) & 0x01010101u;
+}
+
+// S = E / 64 threads, rounded up to whole warps; thread t holds segment t.
 __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __restrict__ ns,
                                   int E, bool* __restrict__ out) {
-    extern __shared__ uint32_t sm[];
-    const int W = E / 32;
-    uint32_t* hyp = sm;                                  // [W] hypothesis tokens
-    uint32_t* fix = sm + W;                              // [W] fix-up tokens
-    int* conv = reinterpret_cast<int*>(sm + 2 * W);      // [kSegs] convergence position
-    int* hexit = conv + kSegs;                           // [kSegs] hypothesis exit
-    uint16_t* st = reinterpret_cast<uint16_t*>(hexit + kSegs);  // [E] steps
-
-    const int b = blockIdx.x;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int S = E / kSeg;
+    const Smem s = carve(smem_raw, S);
     const int t = threadIdx.x;
-    const int* srow = steps + (size_t)b * E;
+    const int b = blockIdx.x;
     const int n = ns[b];
-    const int L = E / kSegs;
+    const bool live = t < S;
 
-    for (int i = t; i < E; i += blockDim.x) st[i] = (uint16_t)srow[i];
-    for (int i = t; i < W; i += blockDim.x) {
-        hyp[i] = 0;
-        fix[i] = 0;
-    }
-    __syncthreads();
-
-    // Phase 1: hypothetical parse of segment t from its first position.
-    {
-        const int seg_end = (t + 1) * L;
-        int p = t * L;
-        while (p < seg_end && p < n) {
-            atomicOr(&hyp[p >> 5], 1u << (p & 31));
-            p += st[p];
+    // ------------------------------------------------------------- load
+    if (live) {
+        const int4* src = reinterpret_cast<const int4*>(steps + (size_t)b * E);
+        int4 v[16];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) v[k] = src[t + k * S];
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            const int i = t + k * S;       // 16 int4 per segment
+            uint32_t* w = s.st + (i >> 4) * kSegWords + (i & 15) * 2;
+            w[0] = (uint32_t)(v[k].x & 0xFFFF) | ((uint32_t)v[k].y << 16);
+            w[1] = (uint32_t)(v[k].z & 0xFFFF) | ((uint32_t)v[k].w << 16);
         }
-        hexit[t] = p;
     }
     __syncthreads();
 
-    // Phase 2: sequential fix-up from each segment's true entry.
+    // ---------------------------------------- phase 1: hypothesis parses
+    // Walks run on offsets inside the segment: o in [0, lim).
+    const int seg_start = t * kSeg;
+    const uint16_t* seg = reinterpret_cast<const uint16_t*>(s.st + t * kSegWords);
+    const int lim = min(kSeg, n - seg_start);
+    unsigned long long hyp = 0;
+    int hexit = seg_start;
+    if (live) {
+        int o = 0;
+        while (o < lim) {
+            hyp |= 1ull << o;
+            o += seg[o];
+        }
+        hexit = seg_start + o;
+        s.hyp[t] = hyp;
+        s.hexit[t] = hexit;
+        s.exit[t] = hexit;
+    }
+    __syncthreads();
+
+    // ----------------------------- phase 2: speculative walk of each segment
+    // The hypothesis is the walk from the segment's own start, which
+    // converges with itself at offset 0; a segment whose predecessor's
+    // hypothesis leaves exactly there keeps it.
+    int entry = seg_start;
+    unsigned long long fix = 0;
+    int conv = 0;
+    const int want = (live && t > 0) ? s.hexit[t - 1] : entry;
+    if (want != entry) {
+        entry = want;
+        int o = max(entry - seg_start, 0);
+        conv = kNone;
+        while (o < lim) {
+            if ((hyp >> o) & 1ull) {
+                conv = o;
+                break;
+            }
+            fix |= 1ull << o;
+            o += seg[o];
+        }
+        s.exit[t] = conv == kNone ? seg_start + o : hexit;
+    }
+    __syncthreads();
+    // The walk is the true one if the predecessor did leave where assumed.
+    const bool stale = live && t > 0 && s.exit[t - 1] != entry;
+    if (live) {
+        s.fix[t] = fix;
+        s.conv[t] = (uint8_t)conv;
+        s.entry[t] = entry;
+    }
+    {
+        const unsigned word = __ballot_sync(0xFFFFFFFFu, stale);
+        if ((t & 31) == 0) s.broken[t >> 5] = word;
+    }
+    __syncthreads();
+
+    // ------------------------------------------------------------ repair
+    const int nw = (S + 31) / 32;
+    uint32_t flagged = 0;        // ballot words that hold a flag
+    if (t < 32) flagged = __ballot_sync(0xFFFFFFFFu, t < nw && s.broken[t] != 0);
     if (t == 0) {
-        int entry = 0;
-        for (int s = 0; s < kSegs; ++s) {
-            const int seg_end = (s + 1) * L;
-            int p = entry > s * L ? entry : s * L;
-            int c = seg_end;
-            while (p < seg_end && p < n) {
-                if (hyp[p >> 5] & (1u << (p & 31))) {
-                    c = p;
+        // Segments at or after the payload's end hold no marks at all.
+        const int last_marked = n > 0 ? min(S - 1, (n - 1) >> 6) : -1;
+        int next = 1;            // first segment not yet known to be true
+        while (true) {
+            int j = S;
+            uint32_t words = (next >> 5) < nw ? flagged & (~0u << (next >> 5)) : 0u;
+            for (; words; words &= words - 1) {
+                const int w = __ffs(words) - 1;
+                uint32_t bits = s.broken[w];
+                if (w == (next >> 5)) bits &= ~0u << (next & 31);
+                if (bits) {
+                    j = w * 32 + __ffs(bits) - 1;
                     break;
                 }
-                fix[p >> 5] |= 1u << (p & 31);
-                p += st[p];
             }
-            conv[s] = c;
-            entry = (c < seg_end) ? hexit[s] : p;
+            if (j >= S) break;
+            // Segments below j are true: follow the true parse from j's entry.
+            int p = s.exit[j - 1];
+            int cur = j - 1;     // last segment whose marks are final
+            bool holds = false;
+            while (p < n && p < E) {
+                const int g = p >> 6;
+                for (int k = cur + 1; k <= g; ++k) {
+                    s.fix[k] = 0;
+                    s.conv[k] = kNone;
+                }
+                cur = g;
+                const int o = p & 63;
+                if ((s.hyp[g] >> o) & 1ull) {
+                    // From here g follows its hypothesis and leaves at hexit.
+                    s.conv[g] = (uint8_t)o;
+                    p = s.hexit[g];
+                    if (g + 1 >= S || s.entry[g + 1] == p) {
+                        holds = true;
+                        next = g + 2;
+                        break;
+                    }
+                    continue;
+                }
+                s.fix[g] |= 1ull << o;
+                p += step_at(s.st, p);
+            }
+            if (!holds) {        // the parse left the chunk or the payload
+                for (int k = cur + 1; k <= last_marked; ++k) {
+                    s.fix[k] = 0;
+                    s.conv[k] = kNone;
+                }
+                break;
+            }
         }
     }
     __syncthreads();
 
-    // Phase 3: token = fix-up mark, or hypothesis mark at/after convergence.
-    bool* orow = out + (size_t)b * E;
-    for (int i = t; i < E; i += blockDim.x) {
-        const uint32_t bit = 1u << (i & 31);
-        const bool h = (hyp[i >> 5] & bit) && i >= conv[i / L];
-        orow[i] = (fix[i >> 5] & bit) || h;
+    // ------------------------------------------------------------ store
+    // token = fix-up mark, or hypothesis mark at or after the convergence.
+    int4* dst = reinterpret_cast<int4*>(out + (size_t)b * E);
+    for (int i = t; i < E / 16; i += blockDim.x) {
+        const int g = i >> 2;
+        const int c = s.conv[g];
+        const unsigned long long keep = c >= kNone ? 0ull : ~0ull << c;
+        const unsigned long long m = s.fix[g] | (s.hyp[g] & keep);
+        const uint32_t bits = (uint32_t)(m >> ((i & 3) * 16)) & 0xFFFFu;
+        int4 v;
+        v.x = (int)spread4(bits & 15u);
+        v.y = (int)spread4((bits >> 4) & 15u);
+        v.z = (int)spread4((bits >> 8) & 15u);
+        v.w = (int)spread4(bits >> 12);
+        dst[i] = v;
     }
 }
 
@@ -94,11 +256,13 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
 
 extern "C" int parse_scan(const int* steps, const int* ns, int B, int E, bool* out,
                           cudaStream_t stream) {
-    const size_t shmem = 2 * (E / 32) * sizeof(uint32_t) + 2 * kSegs * sizeof(int) +
-                         (size_t)E * sizeof(uint16_t);
+    if (B <= 0) return 0;
+    if (E <= 0 || E % kSeg || E / kSeg > 1024) return (int)cudaErrorInvalidValue;
+    const int S = E / kSeg;
+    const size_t shmem = smem_bytes(S);
     cudaError_t err = cudaFuncSetAttribute(
         parse_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
-    parse_scan_kernel<<<B, kSegs, shmem, stream>>>(steps, ns, E, out);
+    parse_scan_kernel<<<B, (S + 31) / 32 * 32, shmem, stream>>>(steps, ns, E, out);
     return (int)cudaGetLastError();
 }

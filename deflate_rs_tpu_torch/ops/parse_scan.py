@@ -3,12 +3,14 @@
 Replaces the Pallas kernel ``deflate_rs_tpu/ops/parse_scan.py::_kernel``
 (entry ``parse_scan_batched``).  The sequential parse of a chunk is the
 orbit of position 0 under ``next[i] = i + steps[i]``, cut at the payload
-length ``n``.  The CUDA kernel (``csrc/parse_scan.cu``) keeps the TPU
-kernel's algorithm: segments parse hypothetically from their own first
-position in parallel, then a sequential fix-up enters each segment at the
-previous segment's true exit and walks until it meets a hypothesis token,
-after which the two parses coincide.  :func:`parse_scan_plain` computes the
-same mask by pointer doubling (``parse.reachable``).
+length ``n``.  The CUDA kernel (``csrc/parse_scan.cu``) cuts the chunk into
+segments of 64 positions, one thread each: every segment parses
+hypothetically from its own first position, then again, speculatively, from
+the previous segment's hypothesis exit until it meets a hypothesis token
+(after which the two parses coincide); one thread then repairs, serially,
+only the stretches that follow a segment whose assumed entry proved wrong.
+:func:`parse_scan_plain` computes the same mask by pointer doubling
+(``parse.reachable``).
 """
 
 from __future__ import annotations

@@ -12,8 +12,13 @@ count exceeds ``r``.  The leaf sort and the unsort to symbol order stay in
 ``ops/package_merge.py``.
 
 :func:`lengths_by_rank_plain` is the JAX package's XLA formulation
-(``package_merge.package_merge_lengths``, a full sort per level) batched;
-the CUDA kernel (``csrc/package_merge.cu``) does a bitonic merge per level.
+(``package_merge.package_merge_lengths``, a full sort per level) batched.
+The CUDA kernel (``csrc/package_merge.cu``) gives one block to each row and
+sizes the work by the row's live leaves: a level's list holds the leaves and
+the packages below ``BIG`` of the level before, formed where they are read;
+every thread merges a short run of consecutive places of the two sorted
+lists, found by one binary search, and keeps their leaf flags as a bit word
+for the backward pass.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 All ``deflate_rs_tpu_torch/csrc/*.cu`` sources are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use,
+``sm_90a`` (one ``nvcc`` per source, all started together) and linked into
+one shared library with a plain C interface, at first use,
 in the package's build directory (listed in ``.gitignore``), and loaded with
 ctypes — the idiom ``runtime/native.py`` uses for the host runtime.  Nothing
 here runs at import time, so the CPU tests import every module without a
@@ -31,6 +32,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+_COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -60,13 +62,27 @@ def load_library() -> ctypes.CDLL:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            nvcc = _nvcc()
+            objects = [os.path.join(BUILD_DIR, f"{os.path.basename(p)}.{os.getpid()}.o")
+                       for p in sources]
+            procs = [subprocess.Popen([nvcc, *_COMPILE_FLAGS, "-c", "-o", obj, src],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                     for src, obj in zip(sources, objects)]
+            failed = []
+            for src, proc in zip(sources, procs):
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{src} ({proc.returncode}):\n{out}\n{err}")
+            if not failed:
+                link = subprocess.run([nvcc, "-shared", "-o", tmp, *objects],
+                                      capture_output=True, text=True)
+                if link.returncode != 0:
+                    failed.append(f"link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+            for obj in objects:
+                if os.path.exists(obj):
+                    os.remove(obj)
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
             os.replace(tmp, LIB_PATH)
             build_seconds = time.perf_counter() - t0
         _lib = ctypes.CDLL(LIB_PATH)

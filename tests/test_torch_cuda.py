@@ -113,3 +113,56 @@ def test_quarter_hist(dev, E, nq):
     ls, dc = torch.from_numpy(lsym).to(dev), torch.from_numpy(dcode).to(dev)
     _same(hist_kernel.quarter_histograms(ls, dc, nq),
           hist_kernel.quarter_histograms_plain(ls, dc, nq))
+
+
+# Adversarial operands of deflate_rs_tpu_torch/utils/kernel_cases.py, the
+# same ones the CPU tests hold against the JAX package.
+
+from deflate_rs_tpu_torch.utils import kernel_cases  # noqa: E402
+
+
+@pytest.mark.parametrize("E,B,seed", kernel_cases.PARSE_CASES)
+def test_parse_scan_adversarial(dev, E, B, seed):
+    steps, n = kernel_cases.parse_scan_batch(E, B, seed)
+    s, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+    _same(parse_scan.parse_scan(s, nn), parse_scan.parse_scan_plain(s, nn))
+
+
+_PM_CASES = kernel_cases.package_merge_cases()
+
+
+@pytest.mark.parametrize("name,freqs,max_len", _PM_CASES, ids=[c[0] for c in _PM_CASES])
+def test_package_merge_adversarial(dev, name, freqs, max_len):
+    x = torch.from_numpy(kernel_cases.sorted_leaves(freqs)).to(dev)
+    got = pm_kernel.lengths_by_rank(x, max_len)
+    assert got.shape == x.shape
+    if x.numel():
+        _same(got, pm_kernel.lengths_by_rank_plain(x, max_len))
+
+
+@pytest.mark.parametrize("max_len,A", [(7, 286), (3, 30), (2, 19), (16, 512)])
+def test_package_merge_past_the_limit(dev, max_len, A):
+    """More live leaves than 2**max_len, and the widest alphabet taken."""
+    rng = np.random.default_rng(A)
+    f = rng.integers(1, 5000, (9, A)).astype(np.int32)
+    f[1, ::2] = 0
+    f[2, 5:] = 0
+    # Leaves so heavy that every package is clamped at BIG and the selection
+    # runs into them and the padding.
+    f[3] = 0
+    f[3, : 2 * A // 3] = rng.integers(1 << 28, 1 << 29, 2 * A // 3)
+    x = torch.from_numpy(kernel_cases.sorted_leaves(f)).to(dev)
+    _same(pm_kernel.lengths_by_rank(x, max_len), pm_kernel.lengths_by_rank_plain(x, max_len))
+
+
+def test_wrappers_refuse_unsupported_shapes(dev):
+    with pytest.raises(ValueError):
+        parse_scan.parse_scan(torch.ones((1, 4096 + 64), dtype=torch.int32, device=dev),
+                              torch.ones(1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        parse_scan.parse_scan(torch.ones((1, 131072), dtype=torch.int32, device=dev),
+                              torch.ones(1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        pm_kernel.lengths_by_rank(torch.ones((1, 513), dtype=torch.int32, device=dev), 15)
+    with pytest.raises(ValueError):
+        pm_kernel.lengths_by_rank(torch.ones((1, 30), dtype=torch.int32, device=dev), 17)

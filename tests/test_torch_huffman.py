@@ -112,3 +112,128 @@ def test_exact_scoring_chunk_encoder_equals_encode_chunk():
                                       err_msg=f"chunk {i}")
         btypes.add(int(want["btype"]))
     assert btypes == {0, 1, 2, 3}, btypes
+
+
+# ---------------------------------------------------------------------------
+# Adversarial operands (deflate_rs_tpu_torch/utils/kernel_cases.py): the JAX
+# package against the port's plain twin, and a CPU model of the CUDA kernel's
+# algorithm (rows sized by their live leaves, merged thread by thread) against
+# the twin.
+# ---------------------------------------------------------------------------
+
+from deflate_rs_tpu.ops.pm_kernel import package_merge_rows_tpu  # noqa: E402
+from deflate_rs_tpu_torch.ops.pm_kernel import BIG, lengths_by_rank_plain  # noqa: E402
+from deflate_rs_tpu_torch.utils.kernel_cases import package_merge_cases, sorted_leaves  # noqa: E402
+
+PM_CASES = package_merge_cases()
+PM_IDS = [c[0] for c in PM_CASES]
+
+
+@pytest.mark.parametrize("name,freqs,max_len", PM_CASES, ids=PM_IDS)
+def test_adversarial_package_merge_equals_jax(name, freqs, max_len):
+    """Tolerance 0 (integers).  Up to 40 rows go through the Pallas kernel in
+    interpret mode, larger batches through the vmapped XLA form."""
+    if 0 < freqs.shape[0] <= 40:
+        want = package_merge_rows_tpu(jnp.asarray(freqs), max_len, interpret=True)
+    else:
+        want = jax.vmap(functools.partial(package_merge_lengths, max_len=max_len))(
+            jnp.asarray(freqs))
+    got = package_merge_rows(torch.from_numpy(freqs), max_len)
+    assert got.shape == freqs.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+
+def sized_by_m_model(leaf, max_len):
+    """The CUDA kernel's algorithm for one row of leaves by rank."""
+    A = len(leaf)
+    lv = [int(v) for v in leaf]
+    m = sum(v < BIG for v in lv)
+    inf = (1 << 31) - 1
+    threads = 32 if 2 * m <= 96 else 128  # threads that work on the row
+    c = ((2 * m + threads - 1) // threads) | 1
+    prev, n_prev = lv, m  # level 0 is the leaves alone
+    nlist, nbig, bits = [m], [0], [None]
+    for lvl in range(1, max_len):
+        npk = n_prev >> 1
+        N = m + npk
+
+        def package(j):  # formed where it is read, clamped at BIG
+            return min(prev[2 * j] + prev[2 * j + 1], BIG)
+
+        cur, words, big = [None] * N, [0] * threads, 0
+        for t in range(threads):
+            q0 = t * c
+            lo, hi = max(0, q0 - npk), min(q0, m)
+            while lo < hi:  # leaves among the first q0 merged entries
+                mid = (lo + hi) >> 1
+                if lv[mid] <= package(q0 - mid - 1):
+                    lo = mid + 1
+                else:
+                    hi = mid
+            i, j = lo, q0 - lo
+            for q in range(q0, min(q0 + c, N)):
+                a = lv[i] if i < m else inf
+                b = package(j) if j < npk else inf
+                if a <= b:
+                    cur[q] = a
+                    words[t] |= 1 << (q - q0)
+                    i += 1
+                else:
+                    cur[q] = b
+                    j += 1
+                big += cur[q] >= BIG
+            assert words[t] < 1 << 16
+        assert None not in cur and cur == sorted(cur)
+        bits.append(words)
+        nlist.append(N)
+        nbig.append(big)
+        prev, n_prev = cur, N
+    n_sel = max(2 * m - 2, 0)
+    lengths = np.zeros(A, np.int32)
+    for lvl in range(max_len - 1, -1, -1):
+        take = min(max(n_sel, 0), 2 * A)
+        N = nlist[lvl] - nbig[lvl]  # entries below BIG
+        tr = min(take, N)
+        if lvl == 0:
+            cnt = tr
+        else:
+            cnt = 0
+            for t in range(threads):
+                k = min(max(tr - t * c, 0), 32)
+                cnt += bin(bits[lvl][t] & ((1 << k) - 1)).count("1")
+        cnt += min(max(take - N, 0), A - m)
+        lengths += np.arange(A) < cnt
+        n_sel = 2 * (take - cnt)
+    return lengths
+
+
+@pytest.mark.parametrize("name,freqs,max_len", PM_CASES, ids=PM_IDS)
+def test_sized_by_m_model_equals_plain(name, freqs, max_len):
+    """The kernel's algorithm, modelled on the CPU, equals the plain twin
+    (tolerance 0), on at most 48 rows of each case, spread over it."""
+    leaf = sorted_leaves(freqs)
+    R = leaf.shape[0]
+    want = lengths_by_rank_plain(torch.from_numpy(leaf), max_len).numpy()
+    assert want.shape == leaf.shape
+    for r in range(0, R, max(1, R // 48)):
+        np.testing.assert_array_equal(sized_by_m_model(leaf[r], max_len), want[r],
+                                      err_msg=f"{name} row {r}")
+
+
+@pytest.mark.parametrize("max_len,A", [(7, 286), (3, 30), (2, 19)])
+def test_sized_by_m_model_past_the_limit(max_len, A):
+    """More live leaves than 2**max_len: the selection runs past the real
+    entries into the padding, which the model counts as the twin does."""
+    rng = np.random.default_rng(A)
+    f = rng.integers(1, 5000, (6, A)).astype(np.int32)
+    f[1, ::2] = 0
+    f[2, 5:] = 0
+    # Leaves so heavy that every package is clamped at BIG and the selection
+    # runs into them and the padding.
+    f[3] = 0
+    f[3, : 2 * A // 3] = rng.integers(1 << 28, 1 << 29, 2 * A // 3)
+    leaf = sorted_leaves(f)
+    want = lengths_by_rank_plain(torch.from_numpy(leaf), max_len).numpy()
+    for r in range(len(leaf)):
+        np.testing.assert_array_equal(sized_by_m_model(leaf[r], max_len), want[r])

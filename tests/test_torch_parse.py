@@ -72,3 +72,134 @@ def test_parse_segment_boundary_overhangs():
         steps[s * L - 3] = 40 + (s % 200)
     got = parse_scan(torch.from_numpy(steps)[None], torch.tensor([E], dtype=torch.int32))
     np.testing.assert_array_equal(got[0].numpy(), serial_parse(steps, E))
+
+
+# ---------------------------------------------------------------------------
+# Adversarial operands (deflate_rs_tpu_torch/utils/kernel_cases.py): the JAX
+# package against the port's plain twin, and a CPU model of the CUDA kernel's
+# algorithm (speculative fix-up in rounds, then a repair pass) against the twin.
+# ---------------------------------------------------------------------------
+
+from deflate_rs_tpu.ops.parse_scan import parse_scan_batched  # noqa: E402
+from deflate_rs_tpu_torch.utils.kernel_cases import PARSE_CASES, SEG, parse_scan_batch  # noqa: E402
+
+
+def _plain(steps, ns):
+    return parse_scan(torch.from_numpy(steps), torch.from_numpy(ns)).numpy()
+
+
+@pytest.mark.parametrize("E,B,seed", PARSE_CASES)
+def test_adversarial_parse_equals_jax(E, B, seed):
+    """Tolerance 0 (booleans).  The Pallas kernel runs in interpret mode at
+    the 4 KiB tier; at 64 KiB the JAX side is ``parse.reachable``."""
+    steps, ns = parse_scan_batch(E, B, seed)
+    got = _plain(steps, ns)
+    if E <= 4096:
+        want = np.asarray(parse_scan_batched(steps, ns, interpret=True))
+    else:
+        pos = jnp.arange(E, dtype=jnp.int32)
+        rows = []
+        for b in range(B):
+            nxt = jnp.minimum(pos + steps[b], E)
+            reach = jp.reachable(jnp.concatenate([nxt, jnp.full(1, E, jnp.int32)]), 0)
+            rows.append(np.asarray(reach[:E] & (pos < ns[b])))
+        want = np.stack(rows)
+    np.testing.assert_array_equal(got, want)
+
+
+def speculative_parse_model(steps, n, rounds):
+    """The CUDA kernel's algorithm for one chunk: hypotheses, ``rounds``
+    rounds of speculative re-walks (the kernel ships one), then the serial
+    repair, which has to be right after any number of rounds."""
+    E = len(steps)
+    S = E // SEG
+    steps = steps.tolist()
+    hyp, hexit = [0] * S, [0] * S
+    for s in range(S):  # phase 1: hypothesis parse of every segment
+        p = s * SEG
+        while p < (s + 1) * SEG and p < n:
+            hyp[s] |= 1 << (p - s * SEG)
+            p += steps[p]
+        hexit[s] = p
+    # The hypothesis is the walk from the segment's start: it converges with
+    # itself at offset 0.
+    entry = [s * SEG for s in range(S)]
+    fix, conv, exit_ = [0] * S, [0] * S, list(hexit)
+    for _ in range(rounds):  # phase 2: re-walk where the predecessor's exit moved
+        want = [entry[0]] + exit_[:-1]
+        stale = [s for s in range(S) if want[s] != entry[s]]
+        if not stale:
+            break
+        for s in stale:
+            entry[s] = want[s]
+            p = max(entry[s], s * SEG)
+            fix[s], conv[s] = 0, SEG
+            while p < (s + 1) * SEG and p < n:
+                o = p - s * SEG
+                if hyp[s] >> o & 1:
+                    conv[s] = o
+                    break
+                fix[s] |= 1 << o
+                p += steps[p]
+            exit_[s] = p if conv[s] == SEG else hexit[s]
+    broken = [s > 0 and exit_[s - 1] != entry[s] for s in range(S)]
+
+    def discard(lo, hi):
+        for k in range(lo, hi + 1):
+            fix[k], conv[k] = 0, SEG
+
+    last_marked = min(S - 1, (n - 1) // SEG) if n > 0 else -1
+    nxt = 1
+    while True:  # repair
+        j = next((k for k in range(nxt, S) if broken[k]), S)
+        if j >= S:
+            break
+        p, cur, holds = exit_[j - 1], j - 1, False
+        while p < n and p < E:
+            g = p // SEG
+            discard(cur + 1, g)
+            cur = g
+            o = p % SEG
+            if hyp[g] >> o & 1:
+                conv[g] = o
+                p = hexit[g]
+                if g + 1 >= S or entry[g + 1] == p:
+                    holds, nxt = True, g + 2
+                    break
+                continue
+            fix[g] |= 1 << o
+            p += steps[p]
+        if not holds:
+            discard(cur + 1, last_marked)
+            break
+    out = np.zeros(E, bool)
+    for s in range(S):
+        keep = 0 if conv[s] >= SEG else (~0 << conv[s]) & ((1 << SEG) - 1)
+        m = fix[s] | (hyp[s] & keep)
+        out[s * SEG:(s + 1) * SEG] = [(m >> o) & 1 for o in range(SEG)]
+    return out
+
+
+@pytest.mark.parametrize("rounds", [1, 4])
+@pytest.mark.parametrize("E,B,seed", PARSE_CASES)
+def test_speculative_parse_model_equals_plain(E, B, seed, rounds):
+    """The kernel's algorithm, modelled on the CPU, equals the plain twin
+    (tolerance 0).  At the 64 KiB tier the first rows of each batch, which
+    cover every pattern; every row at 4 KiB."""
+    steps, ns = parse_scan_batch(E, B, seed)
+    want = _plain(steps, ns)
+    rows = range(B) if E <= 4096 else range(min(B, 7))
+    for b in rows:
+        got = speculative_parse_model(steps[b], int(ns[b]), rounds)
+        np.testing.assert_array_equal(got, want[b], err_msg=f"row {b}")
+
+
+def test_speculation_is_exercised():
+    """The cases do reach the repair pass: in the never-converge pattern no
+    hypothesis of the first half meets the true parse."""
+    steps, ns = parse_scan_batch(4096, 1, 3)  # row 0: never_converge, n = 1
+    steps, n = steps[0], 4096
+    truth = serial_parse(steps, n)
+    assert truth[1:2048:SEG].all() and not truth[SEG:2048:SEG].any()
+    for rounds in (0, 1, 4):
+        np.testing.assert_array_equal(speculative_parse_model(steps, n, rounds), truth)
