@@ -14,10 +14,12 @@ Phases (each prints a line; any failure exits non-zero):
    from the encoders' own runs over 32 chunks of the mix below: Default
    (every kernel; quarter histograms at nq = 8), fast (nq = 1), rle
    (nq = 4) and high (lr_measure at 32 segments, package-merge at its
-   2,304 rows).  Exact equality is required.  Then the adversarial
-   operands of ``deflate_rs_tpu_torch/utils/kernel_cases.py`` go through
-   ``parse_scan`` and ``package_merge`` and their plain versions, exact
-   equality again.  Prints per kernel: its time (CUDA events around replays
+   2,304 rows).  Exact equality is required.  ``lr_measure`` and the
+   quarter histograms are also checked and timed on one chunk alone
+   (B = 1).  Then the adversarial operands of
+   ``deflate_rs_tpu_torch/utils/kernel_cases.py`` go through ``parse_scan``,
+   ``package_merge``, ``lr_measure`` and ``quarter_hist`` and their plain
+   versions, exact equality again.  Prints per kernel: its time (CUDA events around replays
    of a CUDA graph of 20 calls of the wrapper, so the card's time without
    the host's launch cost; the eager loop's time beside it), the plain
    version's time, the bound computed from the operands just timed, and for
@@ -154,6 +156,22 @@ def bincount_yardstick(args, outs):
     return cuda_ms(lambda: torch.bincount(flat, minlength=trash + 1), 20), same
 
 
+def tier_buffers(mix: bytes, emit: int):
+    """The encoder's operands for one batch of the mix in the emit tier:
+    the first 32 chunks of 64 KiB with their history, or 32 pieces of 4 KiB
+    (each a stream of its own) for the small tier."""
+    import numpy as np
+
+    from deflate_rs_tpu_torch.models.deflate import _chunk_buffers
+
+    if emit == 65536:
+        return _chunk_buffers(mix, [i * 65536 for i in range(BATCH)], emit)
+    pieces = [mix[i * 4096 * 7 : i * 4096 * 7 + 4096] for i in range(BATCH)]
+    bufs = np.stack([_chunk_buffers(p, [0], emit)[0][0] for p in pieces])
+    return (bufs, np.zeros(BATCH, np.int64), np.full(BATCH, 4096, np.int64),
+            np.ones(BATCH, bool))
+
+
 def harvest(encoder, bufs, hist, ns, last):
     """Run ``encoder`` once, recording the first inputs of each kernel wrapper."""
     from deflate_rs_tpu_torch.ops import chunk_encode, longrange, package_merge
@@ -220,7 +238,6 @@ def timed_run(dt, cuda, data: bytes, opts, label: str, skip: tuple = ()) -> dict
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -228,7 +245,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     import deflate_rs_tpu_torch as dt
-    from deflate_rs_tpu_torch.models.deflate import _chunk_buffers
     from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
                                           pm_kernel)
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
@@ -307,14 +323,7 @@ def main() -> int:
     harvest_opts = {"default": O.default(), "fast": O.fast(), "rle": O.rle(), "high": O.high()}
     results = {}
     for emit in (4096, 65536):
-        if emit == 65536:
-            offsets = [i * 65536 for i in range(BATCH)]
-            bufs, hist, ns, last = _chunk_buffers(mix, offsets, emit)
-        else:
-            pieces = [mix[i * 4096 * 7 : i * 4096 * 7 + 4096] for i in range(BATCH)]
-            bufs = np.stack([_chunk_buffers(p, [0], emit)[0][0] for p in pieces])
-            hist, ns = np.zeros(BATCH, np.int64), np.full(BATCH, 4096, np.int64)
-            last = np.ones(BATCH, bool)
+        bufs, hist, ns, last = tier_buffers(mix, emit)
         seen = {}
         for name, o in harvest_opts.items():
             enc = ChunkEncoder(o, emit).to(dev)
@@ -351,6 +360,16 @@ def main() -> int:
             if emit == 65536:
                 r.update(ms=k_ms, eager_ms=e_ms, plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                          library_ms=lib_ms)
+            if emit == 65536 and key in ("lr_measure", "quarter_hist_nq8", "quarter_hist_nq1"):
+                # One chunk alone: the shape a streaming encoder would launch.
+                one = tuple(a[:1].contiguous() if torch.is_tensor(a) else a for a in args)
+                got1, want1 = kern[key](one), plain[key](one)
+                if not all(torch.equal(g, w) for g, w in zip(got1, want1)):
+                    raise SystemExit(f"kernel {key} disagrees with its plain version at B=1")
+                b1, o1 = bound_of(key, one, got1)
+                print(f"kernel {key} ({preset}) emit={emit} B=1: max_abs_err=0 kernel "
+                      f"{kernel_ms(lambda: kern[key](one)):.4f} ms (eager loop "
+                      f"{cuda_ms(lambda: kern[key](one), 50):.4f}) bound {max(b1, o1):.5f} ms")
 
     # Adversarial operands: exact equality with the plain versions.
     for E, B, seed in kernel_cases.PARSE_CASES:
@@ -365,9 +384,23 @@ def main() -> int:
         if got.shape != leaf.shape or (leaf.numel() and not torch.equal(
                 got, pm_kernel.lengths_by_rank_plain(leaf, max_len))):
             raise SystemExit(f"package_merge disagrees on the adversarial case {name}")
+    for B, S, N, seed in kernel_cases.LR_CASES:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.lr_measure_batch(B, S, N, seed))
+        if not all(torch.equal(g, w) for g, w in zip(lr_kernel.lr_measure(*a, N),
+                                                     lr_kernel.lr_measure_plain(*a, N))):
+            raise SystemExit(f"lr_measure disagrees on the adversarial case B={B} S={S} N={N} "
+                             f"seed={seed}")
+    for B, E, nq, seed in kernel_cases.HIST_CASES:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.hist_batch(B, E, seed))
+        if not all(torch.equal(g, w) for g, w in zip(
+                hist_kernel.quarter_histograms(*a, nq),
+                hist_kernel.quarter_histograms_plain(*a, nq))):
+            raise SystemExit(f"quarter_hist disagrees on the adversarial case B={B} E={E} "
+                             f"nq={nq} seed={seed}")
     torch.cuda.synchronize()
     print(f"kernels: adversarial cases equal the plain versions exactly: parse_scan "
-          f"{len(kernel_cases.PARSE_CASES)}, package_merge {len(pm_cases)}")
+          f"{len(kernel_cases.PARSE_CASES)}, package_merge {len(pm_cases)}, lr_measure "
+          f"{len(kernel_cases.LR_CASES)}, quarter_hist {len(kernel_cases.HIST_CASES)}")
     print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------ default path

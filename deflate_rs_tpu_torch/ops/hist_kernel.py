@@ -65,8 +65,11 @@ def quarter_histograms(lsym_eff: torch.Tensor, dcode_eff: torch.Tensor, nq: int)
         raise ValueError(f"quarter_hist: unsupported shape B={B}, E={E}, nq={nq}")
     cuda.check_cuda(lsym_eff, "lsym_eff", torch.int32, (B, E))
     cuda.check_cuda(dcode_eff, "dcode_eff", torch.int32, (B, E))
-    lf = torch.empty((B, nq, NBINS_L), dtype=torch.int32, device=lsym_eff.device)
-    df = torch.empty((B, nq, NBINS_D), dtype=torch.int32, device=lsym_eff.device)
+    # One allocation for both outputs: where the kernel splits a quarter over
+    # several blocks it zeroes them with a single memset before the launch.
+    flat = torch.empty(B * nq * (NBINS_L + NBINS_D), dtype=torch.int32, device=lsym_eff.device)
+    lf = flat[: B * nq * NBINS_L].view(B, nq, NBINS_L)
+    df = flat[B * nq * NBINS_L :].view(B, nq, NBINS_D)
     _KERNEL(lsym_eff.device, lsym_eff.data_ptr(), dcode_eff.data_ptr(), B, E, nq,
             lf.data_ptr(), df.data_ptr())
     return lf, df

@@ -36,6 +36,8 @@ _KERNEL = cuda.register("lr_measure", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # run, dist, xor_next
 ])
 
+MAX_SLOTS = 64  # dominants per segment the kernel's winner key has room for
+
 
 def window_words(N: int, S: int) -> int:
     """LW: words measured per segment (owned words + MAX_MATCH overhang)."""
@@ -85,8 +87,8 @@ def lr_measure(buf: torch.Tensor, doms: torch.Tensor, N: int):
     B, S, M = doms.shape
     L = N // S
     LW = window_words(N, S)
-    if N % (4 * S) or LW > 1024:
-        raise ValueError(f"lr_measure: unsupported geometry N={N}, S={S}")
+    if N % (4 * S) or LW > 1024 or M > MAX_SLOTS:
+        raise ValueError(f"lr_measure: unsupported geometry N={N}, S={S}, M={M}")
     cuda.check_cuda(buf, "buf", torch.uint8, (B, buf.shape[1]))
     cuda.check_cuda(doms, "doms", torch.int32, (B, S, M))
     run = torch.empty((B, S, LW), dtype=torch.int32, device=buf.device)

@@ -1,18 +1,33 @@
-"""A/B timing of two versions of the parse_scan and package_merge kernels.
+"""A/B timing of two versions of the redesigned CUDA kernels.
 
 Times from different runs on different cards differ by more than these
 kernels' gaps, so the old and the new sources are built into two libraries
 and timed in one process on the same operands, in turns (old, new, new,
 old).  Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 -m deflate_rs_tpu_torch.tools.kernel_ab --old-csrc DIR [--iters 200]
+    python3 -m deflate_rs_tpu_torch.tools.kernel_ab --old-csrc DIR [DIR ...] \\
+        [--kernels lr_measure,quarter_hist,parse_scan,package_merge] [--iters 200]
 
-``DIR`` holds the older ``parse_scan.cu`` and ``package_merge.cu`` (for
-example ``git show <commit>:deflate_rs_tpu_torch/csrc/parse_scan.cu``); the
-new ones are the package's own.  Operands: the Default encoder's inputs at
-32 chunks of 64 KiB (harvested as ``chip_smoke.py`` does), the ``high``
-encoder's package-merge rows (2,304 x 286), and adversarial batches of
-``utils/kernel_cases.py``.  Both versions must equal the plain twin.
+``DIR`` holds the older ``<kernel>.cu`` of every kernel named (for example
+``git show <commit>:deflate_rs_tpu_torch/csrc/lr_measure.cu``); the new ones
+are the package's own.  Several directories (steps of a redesign) are timed
+in the order given, then the new sources, then all again in reverse.
+Operands:
+
+- ``lr_measure``: the Default encoder's inputs at 32 chunks of 64 KiB (64
+  segments), the ``high`` encoder's (32 segments), Default's in the 4 KiB
+  tier, one chunk alone, and two adversarial batches (every pattern mixed;
+  all-zero buffers, where every live dominant ties over the whole window);
+- ``quarter_hist``: Default's (nq 8), fast's (nq 1) and rle's (nq 4)
+  inputs, one chunk alone at nq 8 and nq 1, and one symbol at every
+  position at nq 1 and nq 8;
+- ``parse_scan``: Default's inputs and three adversarial patterns;
+- ``package_merge``: Default's two calls, high's 2,304 x 286 rows and two
+  adversarial batches.
+
+The harvested inputs are recorded as ``chip_smoke.py`` does; the adversarial
+ones come from ``utils/kernel_cases.py``.  Both versions must equal the plain
+twin on every set.
 
 Two clocks per entry, both CUDA events: ``eager`` is a loop of ``--iters``
 raw launches from Python (host launch cost included where the kernel is
@@ -28,6 +43,8 @@ import json
 import os
 import subprocess
 import sys
+
+KERNELS = ("lr_measure", "quarter_hist", "parse_scan", "package_merge")
 
 
 def _build(nvcc: str, flags: list, sources: list, out: str) -> ctypes.CDLL:
@@ -67,9 +84,14 @@ def _times(torch, launch, iters: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-csrc", required=True)
+    ap.add_argument("--old-csrc", required=True, nargs="+", metavar="DIR")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ", ".join(KERNELS))
     ap.add_argument("--iters", type=int, default=200)
     args = ap.parse_args()
+    chosen = args.kernels.split(",")
+    if not chosen or any(k not in KERNELS for k in chosen):
+        ap.error(f"--kernels takes names of {KERNELS}")
 
     import numpy as np
     import torch
@@ -81,7 +103,7 @@ def main() -> int:
     sys.path.insert(0, root)
     import chip_smoke
     import deflate_rs_tpu_torch as dt
-    from deflate_rs_tpu_torch.models.deflate import _chunk_buffers
+    from deflate_rs_tpu_torch.ops import hist_kernel, lr_kernel
     from deflate_rs_tpu_torch.ops import parse_scan as ps
     from deflate_rs_tpu_torch.ops import pm_kernel as pm
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
@@ -91,99 +113,171 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"card": smi, "iters": args.iters}))
-    names = ["parse_scan.cu", "package_merge.cu"]
+    print(json.dumps({"card": smi, "iters": args.iters, "kernels": chosen}))
+    names = [f"{k}.cu" for k in chosen]
     tmp = os.path.join(cuda.BUILD_DIR, "kernel_ab")
     os.makedirs(tmp, exist_ok=True)
+    # Versions by name: "old" (or "old:DIR" where several were given), "new".
+    dirs = {("old" if len(args.old_csrc) == 1 else f"old:{d}"): d for d in args.old_csrc}
+    dirs["new"] = cuda.CSRC_DIR
     libs = {
-        "old": _build(cuda._nvcc(), cuda.NVCC_FLAGS, [os.path.join(args.old_csrc, n) for n in names],
-                      os.path.join(tmp, "libold.so")),
-        "new": _build(cuda._nvcc(), cuda.NVCC_FLAGS, [os.path.join(cuda.CSRC_DIR, n) for n in names],
-                      os.path.join(tmp, "libnew.so")),
+        version: _build(cuda._nvcc(), cuda.NVCC_FLAGS, [os.path.join(d, n) for n in names],
+                        os.path.join(tmp, f"lib{i}.so"))
+        for i, (version, d) in enumerate(dirs.items())
     }
     P, I = ctypes.c_void_p, ctypes.c_int
+    argtypes = {
+        "lr_measure": [P, I, P, I, I, I, I, I, P, P, P, P],
+        "quarter_hist": [P, P, I, I, I, P, P, P],
+        "parse_scan": [P, P, I, I, P, P],
+        "package_merge": [P, I, I, I, P, P],
+    }
     for lib in libs.values():
-        lib.parse_scan.argtypes = [P, P, I, I, P, P]
-        lib.package_merge.argtypes = [P, I, I, I, P, P]
+        for k in chosen:
+            getattr(lib, k).argtypes = argtypes[k]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def check(err, what):
-        if err != 0:
-            raise SystemExit(f"{what}: launch error {err}")
-
     unequal = []
+
+    def ab(kernel: str, operands: str, info: dict, call, outs, want) -> None:
+        """Time ``call(lib_fn)`` old, new, new, old; ``outs`` (overwritten
+        before each turn's first launch) must equal ``want``."""
+        for which in [*libs, *reversed(libs)]:
+            fn = getattr(libs[which], kernel)
+
+            def run():
+                err = call(fn)
+                if err != 0:
+                    raise SystemExit(f"{which} {kernel}: launch error {err}")
+
+            for o in outs:
+                o.fill_(-7)
+            run()
+            torch.cuda.synchronize()
+            row = {"kernel": kernel, "operands": operands, **info, "version": which,
+                   "equal": all(torch.equal(o, w) for o, w in zip(outs, want))}
+            row.update(_times(torch, run, args.iters))
+            print(json.dumps(row), flush=True)
+            if not row["equal"]:
+                unequal.append(row)
 
     # ----------------------------------------------------------- operands
     with open(os.path.join(root, "tests", "data", "pg11.txt"), "rb") as f:
         mix = chip_smoke.build_mix(chip_smoke.MIX_BYTES, f.read())
-    bufs, hist, ns, last = _chunk_buffers(mix, [i * 65536 for i in range(32)], 65536)
+    O = dt.CompressionOptions
+    wanted = {"default": O.default(), "high": O.high()}
+    if "quarter_hist" in chosen:
+        wanted.update(fast=O.fast(), rle=O.rle())
     seen = {}
-    for name, o in (("default", dt.CompressionOptions.default()),
-                    ("high", dt.CompressionOptions.high())):
-        with torch.no_grad():
-            seen[name] = chip_smoke.harvest(
-                ChunkEncoder(o, 65536).to(dev), torch.from_numpy(bufs).to(dev),
-                torch.from_numpy(hist), torch.from_numpy(ns), torch.from_numpy(last))
-    parse_ops = {"default": seen["default"]["parse_scan"]}
-    for pattern in ("max", "never_converge", "uniform"):
-        rng = np.random.default_rng(7)
-        steps = np.stack([kernel_cases.parse_steps(pattern, rng, 65536) for _ in range(32)])
-        parse_ops[pattern] = (torch.from_numpy(steps).to(dev),
-                              torch.full((32,), 65536, dtype=torch.int32, device=dev))
-    pm_ops = {
-        "default_512x286_at_15": seen["default"]["lengths_by_rank_15"],
-        "default_256x19_at_7": seen["default"]["lengths_by_rank_7"],
-        "high_2304x286_at_15": seen["high"]["lengths_by_rank_15"],
-    }
-    for name, freqs, max_len in kernel_cases.package_merge_cases():
-        if name in ("mixed_2304x286", "m_sweep_286"):
-            pm_ops[name] = (torch.from_numpy(kernel_cases.sorted_leaves(freqs)).to(dev), max_len)
+    for emit in (65536, 4096) if "lr_measure" in chosen else (65536,):
+        bufs, hist, ns, last = chip_smoke.tier_buffers(mix, emit)
+        for name, o in wanted.items():
+            if emit == 4096 and name != "default":
+                continue
+            with torch.no_grad():
+                seen[name, emit] = chip_smoke.harvest(
+                    ChunkEncoder(o, emit).to(dev), torch.from_numpy(bufs).to(dev),
+                    torch.from_numpy(hist), torch.from_numpy(ns), torch.from_numpy(last))
+
+    def to_dev(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+
+    # --------------------------------------------------------- lr_measure
+    if "lr_measure" in chosen:
+        lr_ops = {
+            "default_s64": seen["default", 65536]["lr_measure"],
+            "high_s32": seen["high", 65536]["lr_measure"],
+            "default_4k_tier": seen["default", 4096]["lr_measure"],
+        }
+        buf, doms, N = lr_ops["default_s64"]
+        lr_ops["default_s64_one_chunk"] = (buf[:1].contiguous(), doms[:1].contiguous(), N)
+        lr_ops["adversarial_mixed"] = (*to_dev(*kernel_cases.lr_measure_batch(32, 64, 98304, 0)),
+                                       98304)
+        rng = np.random.default_rng(5)
+        rows = [kernel_cases.lr_operands("zeros", rng, 98304, 64) for _ in range(32)]
+        lr_ops["adversarial_zeros"] = (*to_dev(np.stack([r[0] for r in rows]),
+                                               np.stack([r[1] for r in rows])), 98304)
+        for name, (buf, doms, N) in lr_ops.items():
+            B, S, M = doms.shape
+            LW = lr_kernel.window_words(N, S)
+            want = lr_kernel.lr_measure_plain(buf, doms, N)
+            outs = [torch.empty((B, S, LW), dtype=t, device=dev)
+                    for t in (torch.int32, torch.int32, torch.int64)]
+
+            def call(fn):
+                return fn(buf.data_ptr(), buf.shape[1], doms.data_ptr(), B, S, M, N // S, LW,
+                          outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), stream())
+
+            ab("lr_measure", name, {"shape": [B, S, M], "N": N,
+                                    "live": float((doms > 0).float().mean())}, call, outs, want)
+
+    # ------------------------------------------------------- quarter_hist
+    if "quarter_hist" in chosen:
+        hist_ops = {
+            "default_nq8": seen["default", 65536]["quarter_histograms"],
+            "fast_nq1": seen["fast", 65536]["quarter_histograms"],
+            "rle_nq4": seen["rle", 65536]["quarter_histograms"],
+        }
+        for name in ("default_nq8", "fast_nq1"):
+            lsym, dcode, nq = hist_ops[name]
+            hist_ops[f"{name}_one_chunk"] = (lsym[:1].contiguous(), dcode[:1].contiguous(), nq)
+        rng = np.random.default_rng(6)
+        one = to_dev(*(np.stack(x) for x in zip(
+            *[kernel_cases.hist_operands("one_symbol", rng, 65536) for _ in range(32)])))
+        hist_ops["one_symbol_nq1"] = (*one, 1)
+        hist_ops["one_symbol_nq8"] = (*one, 8)
+        for name, (lsym, dcode, nq) in hist_ops.items():
+            B, E = lsym.shape
+            want = hist_kernel.quarter_histograms_plain(lsym, dcode, nq)
+            flat = torch.empty(B * nq * 316, dtype=torch.int32, device=dev)
+            outs = [flat[: B * nq * 286].view(B, nq, 286), flat[B * nq * 286 :].view(B, nq, 30)]
+
+            def call(fn):
+                return fn(lsym.data_ptr(), dcode.data_ptr(), B, E, nq, outs[0].data_ptr(),
+                          outs[1].data_ptr(), stream())
+
+            ab("quarter_hist", name, {"shape": [B, E], "nq": nq}, call, outs, want)
 
     # --------------------------------------------------------- parse_scan
-    for name, (steps, n) in parse_ops.items():
-        B, E = steps.shape
-        want = ps.parse_scan_plain(steps, n)
-        out = torch.empty((B, E), dtype=torch.bool, device=dev)
+    if "parse_scan" in chosen:
+        parse_ops = {"default": seen["default", 65536]["parse_scan"]}
+        for pattern in ("max", "never_converge", "uniform"):
+            rng = np.random.default_rng(7)
+            steps = np.stack([kernel_cases.parse_steps(pattern, rng, 65536) for _ in range(32)])
+            parse_ops[pattern] = (*to_dev(steps),
+                                  torch.full((32,), 65536, dtype=torch.int32, device=dev))
+        for name, (steps, n) in parse_ops.items():
+            B, E = steps.shape
+            out = torch.empty((B, E), dtype=torch.bool, device=dev)
 
-        def run(which):
-            check(libs[which].parse_scan(steps.data_ptr(), n.data_ptr(), B, E, out.data_ptr(),
-                                         stream()), f"{which} parse_scan")
+            def call(fn):
+                return fn(steps.data_ptr(), n.data_ptr(), B, E, out.data_ptr(), stream())
 
-        for which in ("old", "new", "new", "old"):
-            out.zero_()
-            run(which)
-            torch.cuda.synchronize()
-            row = {"kernel": "parse_scan", "operands": name, "shape": [B, E],
-                   "version": which, "equal": bool(torch.equal(out, want))}
-            row.update(_times(torch, lambda: run(which), args.iters))
-            print(json.dumps(row), flush=True)
-            if not row["equal"]:
-                unequal.append(row)
+            ab("parse_scan", name, {"shape": [B, E]}, call, [out], [ps.parse_scan_plain(steps, n)])
 
     # ------------------------------------------------------ package_merge
-    for name, (leaf, max_len) in pm_ops.items():
-        R, A = leaf.shape
-        want = pm.lengths_by_rank_plain(leaf, max_len)
-        out = torch.empty((R, A), dtype=torch.int32, device=dev)
-        live = (leaf < pm.BIG).sum(dim=1)
+    if "package_merge" in chosen:
+        pm_ops = {
+            "default_512x286_at_15": seen["default", 65536]["lengths_by_rank_15"],
+            "default_256x19_at_7": seen["default", 65536]["lengths_by_rank_7"],
+            "high_2304x286_at_15": seen["high", 65536]["lengths_by_rank_15"],
+        }
+        for name, freqs, max_len in kernel_cases.package_merge_cases():
+            if name in ("mixed_2304x286", "m_sweep_286"):
+                pm_ops[name] = (*to_dev(kernel_cases.sorted_leaves(freqs)), max_len)
+        for name, (leaf, max_len) in pm_ops.items():
+            R, A = leaf.shape
+            out = torch.empty((R, A), dtype=torch.int32, device=dev)
 
-        def run(which):
-            check(libs[which].package_merge(leaf.data_ptr(), R, A, max_len, out.data_ptr(),
-                                            stream()), f"{which} package_merge")
+            def call(fn):
+                return fn(leaf.data_ptr(), R, A, max_len, out.data_ptr(), stream())
 
-        for which in ("old", "new", "new", "old"):
-            out.zero_()
-            run(which)
-            torch.cuda.synchronize()
-            row = {"kernel": "package_merge", "operands": name, "shape": [R, A],
-                   "max_len": max_len, "mean_live": float(live.float().mean()),
-                   "version": which, "equal": bool(torch.equal(out, want))}
-            row.update(_times(torch, lambda: run(which), args.iters))
-            print(json.dumps(row), flush=True)
-            if not row["equal"]:
-                unequal.append(row)
+            ab("package_merge", name,
+               {"shape": [R, A], "max_len": max_len,
+                "mean_live": float((leaf < pm.BIG).sum(dim=1).float().mean())},
+               call, [out], [pm.lengths_by_rank_plain(leaf, max_len)])
     if unequal:
         print(f"kernel_ab: {len(unequal)} results differ from the plain twin", file=sys.stderr)
         return 1

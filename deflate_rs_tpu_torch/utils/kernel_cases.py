@@ -1,18 +1,27 @@
-"""Adversarial operands for the ``parse_scan`` and ``package_merge`` kernels.
+"""Adversarial operands for the port's hand-written CUDA kernels.
 
 The inputs harvested from the encoders' runs are mostly text and never reach
-the corners of the two kernels: hypotheses that never converge, tokens that
-jump a whole segment, payloads that end inside a segment; rows with 0, 1 or
-a power of two of live leaves, frequencies that force the length limit or
-touch the ``BIG`` clamp.  This module builds such operands with numpy from a
-seed, so that the CPU tests (against the JAX package and the plain twins)
-and the card-side checks (``chip_smoke.py``, ``tests/test_torch_cuda.py``)
-run the same cases.
+the corners of the kernels.  ``parse_scan``: hypotheses that never converge,
+tokens that jump a whole segment, payloads that end inside a segment.
+``package_merge``: rows with 0, 1 or a power of two of live leaves,
+frequencies that force the length limit or touch the ``BIG`` clamp.
+``lr_measure``: ties across every dominant, runs that cross every warp,
+mismatches on either side of a warp's 32 words and at the window's end,
+distances of every byte alignment, windows that reach before the buffer or
+past its end, dead, holed, duplicated and full dominant rows.
+``quarter_hist``: one symbol everywhere, nothing in range, negatives, the
+bins' edges.  This module builds such operands with numpy from a seed, so
+that the CPU tests (against the JAX package and the plain twins) and the
+card-side checks (``chip_smoke.py``, ``tests/test_torch_cuda.py``,
+``tools/kernel_ab.py``) run the same cases.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..constants import MAX_MATCH
+from ..constants import WINDOW_SIZE as MAX_DIST
 
 BIG = 1 << 29  # the package-merge padding sentinel (ops/pm_kernel.py)
 SEG = 64  # positions per segment of the CUDA parse kernel
@@ -140,3 +149,185 @@ def package_merge_cases() -> list:
         [_row(MIXED_KINDS[r % len(MIXED_KINDS)], rng, 19) for r in range(512)]), 7))
     cases.append(("no_rows", np.zeros((0, 286), np.int32), 15))
     return cases
+
+
+# ------------------------------------------------------------- lr_measure
+
+LR_PATTERNS = ("zeros", "period", "mismatch", "alignment", "edges", "text")
+LR_PAD = 72  # bytes of a chunk buffer past its N positions
+
+
+def lr_window_words(N: int, S: int) -> int:
+    """Words measured per segment (``ops/lr_kernel.py::window_words``)."""
+    return (N // S + MAX_MATCH + 6) // 4 + 1
+
+
+def _put(doms: np.ndarray, s, values) -> None:
+    """Write ``values`` into the leading slots of segment(s) ``s``."""
+    M = doms.shape[-1]
+    doms[s, : min(M, len(values))] = values[:M]
+
+
+def _low_entropy(rng, n: int) -> np.ndarray:
+    """Four byte values only: runs of every length up to some tens."""
+    return rng.integers(97, 101, n, dtype=np.uint8)
+
+
+def lr_operands(pattern: str, rng, N: int, S: int, M: int = 48):
+    """One chunk's ``(buf uint8[N + LR_PAD], doms int32[S, M])`` of the named
+    pattern; 0 marks a dead slot.  Whatever the pattern, segment ``s`` has
+    its slots reshaped by ``s % 8``: 1 a dead tail, 3 all dead, 5 holes
+    between live slots, 6 duplicated distances; the others stay as built
+    (all ``M`` live)."""
+    L = N // S
+    LW = lr_window_words(N, S)
+    n = N + LR_PAD
+    doms = rng.integers(1, MAX_DIST + 1, (S, M)).astype(np.int32)
+    if pattern == "zeros":
+        # Every dominant matches the whole window: all tie, the first wins,
+        # and the run crosses every warp of the walk.
+        buf = np.zeros(n, np.uint8)
+        for s in range(S):
+            doms[s] = rng.choice(np.arange(1, MAX_DIST + 1), M, replace=False)
+    elif pattern == "period":
+        # Period d: d and 2d (and 3d) match alike; the earlier slot wins.
+        d = int(rng.integers(3, 1200))
+        buf = np.resize(rng.integers(0, 256, d, dtype=np.uint8), n)
+        _put(doms, slice(0, S, 2), np.array([2 * d, d, 3 * d], np.int32))
+        _put(doms, slice(1, S, 2), np.array([d, 3 * d, 2 * d], np.int32))
+    elif pattern == "mismatch":
+        # Period d broken by one byte per segment: at words 31, 32, 33 (the
+        # sides of a warp's 32 words), LW - 2 and LW - 1, at each byte 0..3.
+        d = 4 * int(rng.integers(2, 300)) + int(rng.integers(0, 4))
+        buf = np.resize(rng.integers(0, 256, d, dtype=np.uint8), n)
+        words = (31, 32, 33, LW - 2, LW - 1)
+        for s in range(S):
+            p = s * L + 4 * words[s % 5] + (s // 5) % 4
+            if p < n:
+                buf[p] ^= 0x55
+        doms[:, 6:] = 0
+        _put(doms, slice(None), np.array([d, 2 * d, d + 1, 1, MAX_DIST, 4 * d], np.int32))
+    elif pattern == "alignment":
+        # Distances of every byte alignment, the smallest and the largest.
+        buf = _low_entropy(rng, n)
+        fixed = np.array([1, 2, 3, 4, 5, 6, 7, 8, MAX_DIST, MAX_DIST - 1, MAX_DIST - 2,
+                          MAX_DIST - 3], np.int32)
+        for s in range(S):
+            _put(doms, s, fixed)
+            doms[s] = rng.permutation(doms[s])
+    elif pattern == "edges":
+        # Segment 0 with distances that reach before the buffer (zeros
+        # there, and zeros at the buffer's start to match them); the last
+        # segment against a pad that is all zeros or all sevens, so that a
+        # run either goes on past the buffer's end or stops exactly there.
+        buf = _low_entropy(rng, n)
+        buf[:300] = 0
+        buf[N - 400 :] = 0 if rng.integers(0, 2) else 7
+        _put(doms, 0, np.array([MAX_DIST, 20000, 301, 300, 299, 5, 2, 1], np.int32))
+        _put(doms, S - 1, np.array([1, 2, 3, 4, 71, 72, 73, 400], np.int32))
+    elif pattern == "text":
+        # Long copies at a few distances among low-entropy bytes.
+        buf = _low_entropy(rng, n)
+        copies = rng.integers(1, min(N // 4, MAX_DIST), 3)
+        for q in copies:
+            at = int(rng.integers(q, N - 2 * MAX_MATCH))
+            ln = int(rng.integers(MAX_MATCH, 2 * MAX_MATCH))
+            buf[at : at + ln] = buf[at - q : at - q + ln].copy()
+        _put(doms, slice(None), copies.astype(np.int32))
+    else:
+        raise ValueError(pattern)
+    for s in range(S):
+        k = s % 8
+        if k == 1:
+            doms[s, M // 2 :] = 0
+        elif k == 3:
+            doms[s] = 0
+        elif k == 5:
+            doms[s, 1] = 0
+            doms[s, 3:5] = 0
+        elif k == 6:
+            doms[s, 2] = doms[s, 0]
+            doms[s, M - 1] = doms[s, 1]
+    return buf, doms
+
+
+def lr_measure_batch(B: int, S: int, N: int, seed: int = 0, M: int = 48):
+    """``(buf uint8[B, N + LR_PAD], doms int32[B, S, M])``: row ``r`` has
+    pattern ``(r + seed) % 6`` of ``LR_PATTERNS``."""
+    rng = np.random.default_rng(7000 * seed + N + 3 * B + S)
+    rows = [lr_operands(LR_PATTERNS[(r + seed) % len(LR_PATTERNS)], rng, N, S, M)
+            for r in range(B)]
+    return np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])
+
+
+def lr_harvest(doms: np.ndarray, N: int) -> np.ndarray:
+    """Harvested distances int32[N] whose per-segment dominants are (up to
+    their order) the live slots of ``doms`` int32[S, M]: earlier slots get
+    longer runs, a gap of two positions between runs."""
+    S, M = doms.shape
+    L = N // S
+    d_cand = np.zeros(N, np.int32)
+    for s in range(S):
+        p = s * L
+        for m in range(M):
+            ln = 2 * (1 + (M - m) // 4)
+            if doms[s, m] <= 0:
+                continue
+            if p + ln > (s + 1) * L:
+                break
+            d_cand[p : p + ln] = doms[s, m]
+            p += ln + 2
+    return d_cand
+
+
+# (B, S, N, seed): one chunk in every pattern at Default's and high's segment
+# counts and at the 4 KiB tier's N; a full batch and one past it.
+LR_CASES = ([(1, S, N, seed) for S, N in ((64, 98304), (32, 98304), (64, 36864))
+             for seed in range(len(LR_PATTERNS))]
+            + [(32, 64, 98304, 0), (33, 32, 98304, 1), (33, 64, 36864, 2), (32, 32, 36864, 3)])
+
+
+# ----------------------------------------------------------- quarter_hist
+
+HIST_PATTERNS = ("one_symbol", "out_of_range", "negatives", "edges", "text")
+
+
+def hist_operands(pattern: str, rng, E: int):
+    """One chunk's ``(lsym int32[E], dcode int32[E])`` of the named pattern."""
+    if pattern == "one_symbol":  # worst contention on one bin
+        return np.full(E, 32, np.int32), np.full(E, 5, np.int32)
+    if pattern == "out_of_range":  # the encoder's sentinels everywhere
+        return np.full(E, 999, np.int32), np.full(E, 99, np.int32)
+    if pattern == "negatives":
+        lsym = rng.integers(-300, 286, E).astype(np.int32)
+        dcode = rng.integers(-40, 30, E).astype(np.int32)
+        lsym[:: 97] = np.iinfo(np.int32).min
+        dcode[:: 89] = np.iinfo(np.int32).min
+        return lsym, dcode
+    if pattern == "edges":  # the last bin, the first value past it, around 0
+        return (rng.choice(np.array([285, 286, 0, -1, 287], np.int32), E),
+                rng.choice(np.array([29, 30, 0, -1, 31], np.int32), E))
+    if pattern == "text":  # a hot symbol, the sentinels, the full range
+        lsym = rng.integers(0, 286, E).astype(np.int32)
+        lsym[rng.random(E) < 0.3] = 999
+        lsym[rng.random(E) < 0.2] = 101
+        dcode = rng.integers(0, 30, E).astype(np.int32)
+        dcode[rng.random(E) < 0.6] = 99
+        return lsym, dcode
+    raise ValueError(pattern)
+
+
+def hist_batch(B: int, E: int, seed: int = 0):
+    """``(lsym int32[B, E], dcode int32[B, E])``: row ``r`` has pattern
+    ``(r + seed) % 5`` of ``HIST_PATTERNS``."""
+    rng = np.random.default_rng(9000 * seed + E + B)
+    rows = [hist_operands(HIST_PATTERNS[(r + seed) % len(HIST_PATTERNS)], rng, E)
+            for r in range(B)]
+    return np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])
+
+
+# (B, E, nq, seed): one chunk in every pattern and a batch past 32, in both
+# tiers, at every number of quarters a preset uses.
+HIST_CASES = ([(1, E, nq, seed) for E in (4096, 65536) for nq in (1, 2, 4, 8)
+               for seed in range(len(HIST_PATTERNS))]
+              + [(33, E, nq, 0) for E in (4096, 65536) for nq in (1, 2, 4, 8)])

@@ -34,7 +34,8 @@ def _same(got, want):
 
 
 @pytest.mark.parametrize("N,S,M", [(98304, 64, 48), (36864, 64, 48), (4096, 8, 6),
-                                   (98304, 32, 48), (36864, 32, 48)])
+                                   (98304, 32, 48), (36864, 32, 48),
+                                   (29888, 8, 6)])  # the last: a window of 1,001 words
 def test_lr_measure(dev, N, S, M):
     rng = np.random.default_rng(N)
     B = 3
@@ -140,6 +141,38 @@ def test_package_merge_adversarial(dev, name, freqs, max_len):
         _same(got, pm_kernel.lengths_by_rank_plain(x, max_len))
 
 
+@pytest.mark.parametrize("B,S,N,seed", kernel_cases.LR_CASES)
+def test_lr_measure_adversarial(dev, B, S, N, seed):
+    buf, doms = (torch.from_numpy(a).to(dev) for a in kernel_cases.lr_measure_batch(B, S, N, seed))
+    _same(lr_kernel.lr_measure(buf, doms, N), lr_kernel.lr_measure_plain(buf, doms, N))
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_lr_measure_unaligned_rows(dev, shift):
+    """Rows of an odd length: each starts at another byte alignment."""
+    N, S = 36864, 64
+    buf, doms = kernel_cases.lr_measure_batch(4, S, N, shift)
+    rng = np.random.default_rng(shift)
+    buf = np.concatenate([buf, rng.integers(1, 255, (4, shift), dtype=np.uint8)], axis=1)
+    b, d = torch.from_numpy(buf).to(dev), torch.from_numpy(doms).to(dev)
+    _same(lr_kernel.lr_measure(b, d, N), lr_kernel.lr_measure_plain(b, d, N))
+
+
+@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES)
+def test_quarter_hist_adversarial(dev, B, E, nq, seed):
+    ls, dc = (torch.from_numpy(a).to(dev) for a in kernel_cases.hist_batch(B, E, seed))
+    _same(hist_kernel.quarter_histograms(ls, dc, nq),
+          hist_kernel.quarter_histograms_plain(ls, dc, nq))
+
+
+@pytest.mark.parametrize("B,E,nq", [(3, 6000, 3), (2, 4098, 2), (5, 65536, 16), (1, 12, 4)])
+def test_quarter_hist_odd_shapes(dev, B, E, nq):
+    """Quarters that no 16-byte load fits, and more quarters than a preset uses."""
+    ls, dc = (torch.from_numpy(a).to(dev) for a in kernel_cases.hist_batch(B, E, 4))
+    _same(hist_kernel.quarter_histograms(ls, dc, nq),
+          hist_kernel.quarter_histograms_plain(ls, dc, nq))
+
+
 @pytest.mark.parametrize("max_len,A", [(7, 286), (3, 30), (2, 19), (16, 512)])
 def test_package_merge_past_the_limit(dev, max_len, A):
     """More live leaves than 2**max_len, and the widest alphabet taken."""
@@ -164,5 +197,8 @@ def test_wrappers_refuse_unsupported_shapes(dev):
                               torch.ones(1, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         pm_kernel.lengths_by_rank(torch.ones((1, 513), dtype=torch.int32, device=dev), 15)
+    with pytest.raises(ValueError):  # more slots than the winner key has room for
+        lr_kernel.lr_measure(torch.zeros((1, 4096 + 72), dtype=torch.uint8, device=dev),
+                             torch.ones((1, 8, 65), dtype=torch.int32, device=dev), 4096)
     with pytest.raises(ValueError):
         pm_kernel.lengths_by_rank(torch.ones((1, 30), dtype=torch.int32, device=dev), 17)
