@@ -37,6 +37,30 @@ Phases (each prints a line; any failure exits non-zero):
    three framings, CUDA bytes equal to the CPU port's on its first 1 MiB;
    every kernel's launch counter must move during the timed high run.
 
+5. kernels, wide: all five kernels against their plain versions on operands
+   harvested from a Default run over 8 chunks of 262,144 bytes (the widest
+   chunk the corpus engine takes; ``parse_scan`` then walks four windows a
+   chunk and ``lr_measure`` windows of 1,219 words), exact equality, with
+   time, bound and share; then the adversarial operands at that width.
+6. corpus: ``compress_corpus`` on the 16 MiB mix.  Its bytes must equal
+   ``compress_stream(..., pipelined=False)``'s (the chunk-batch engine) on the
+   card and the CPU port's on the first 1 MiB; the zlib and gzip forms and
+   ``packed=False`` round-trip; ``chunk_size=262_144`` on 4 MiB round-trips
+   and equals the CPU port's on its first 1 MiB; MB/s warm for batch sizes
+   16, 32, 64, 128 and queue depths 1 and 3, three runs each, the chunk-batch
+   engine's three runs beside them, with the bytes fetched per batch by both;
+   every kernel's launch counter must move during a timed corpus run.
+7. streaming: ``DeflateEncoder``, ``ZlibEncoder`` and ``GzEncoder`` over the
+   mix in writes of 1 MiB (all of it) and of 99,991 B (all of it for raw
+   deflate, its first 4 MiB for zlib and gzip): bytes equal to the one-shot
+   CUDA bytes; a stream over 4 MiB with a ``flush()`` every 300,000 B
+   round-trips, and one over pg11 with a ``flush()`` every 50,000 B equals
+   the CPU port's; ``reset`` reuse; the single-chunk row: one 64 KiB write
+   plus ``flush()``, 20 times after a warm one, and a 4 KiB write plus
+   ``finish()``; every kernel's launch counter must move at B = 1.
+8. checksums: ``ChunkEncoder(with_checksums=True)`` partials, combined over
+   the mix, equal ``zlib.adler32`` and ``zlib.crc32``.
+
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
 operations over 16.75 T op/s (the card's 67 TFLOP/s of float32 counts an FMA
@@ -199,6 +223,55 @@ def harvest(encoder, bufs, hist, ns, last):
     return seen
 
 
+WIDE_EMIT = 262144
+WIDE_BATCH = 8
+HALO = 32768
+
+
+def wide_buffers(mix: bytes):
+    """The encoder's operands for ``WIDE_BATCH`` chunks of ``WIDE_EMIT`` bytes
+    of the mix, each with the 32 KiB before it."""
+    import numpy as np
+
+    from deflate_rs_tpu_torch.ops.chunk_encode import PAD
+
+    src = np.frombuffer(mix, np.uint8)
+    bufs = np.zeros((WIDE_BATCH, HALO + WIDE_EMIT + PAD), np.uint8)
+    hist = np.zeros(WIDE_BATCH, np.int64)
+    for i in range(WIDE_BATCH):
+        off = i * WIDE_EMIT
+        h = min(off, HALO)
+        bufs[i, HALO - h : HALO + WIDE_EMIT] = src[off - h : off + WIDE_EMIT]
+        hist[i] = h
+    return (bufs, hist, np.full(WIDE_BATCH, WIDE_EMIT, np.int64),
+            np.zeros(WIDE_BATCH, bool))
+
+
+def stream_through(cls, data: bytes, write_size: int, flush_every: int = 0, **kw) -> bytes:
+    """``data`` through a streaming encoder in writes of ``write_size`` bytes,
+    with a ``flush()`` after every ``flush_every`` bytes where that is set."""
+    import io
+
+    sink = io.BytesIO()
+    enc = cls(sink, **kw)
+    since = 0
+    for off in range(0, len(data), write_size):
+        piece = data[off : off + write_size]
+        enc.write(piece)
+        since += len(piece)
+        if flush_every and since >= flush_every:
+            enc.flush()
+            since = 0
+    enc.finish()
+    return sink.getvalue()
+
+
+def spread(values: list) -> str:
+    v = sorted(values)
+    return (f"median {v[len(v) // 2]:.3f} min {v[0]:.3f} quartiles {v[len(v) // 4]:.3f} / "
+            f"{v[3 * len(v) // 4]:.3f} max {v[-1]:.3f}")
+
+
 def timed_run(dt, cuda, data: bytes, opts, label: str, skip: tuple = ()) -> dict:
     """Warm run, then ``deflate_bytes_conf`` timed with the launch counters
     set to 0 just before it; zlib and gzip framings after.  All three must
@@ -228,8 +301,8 @@ def timed_run(dt, cuda, data: bytes, opts, label: str, skip: tuple = ()) -> dict
     mb = len(data) / 1e6
     print(f"{label}: 16 MiB mix round-trips in raw/zlib/gzip; ratio "
           f"{len(out_raw) / len(data):.4f}; deflate {wall:.3f} s = {mb / wall:.2f} MB/s, "
-          f"zlib {mb / wall_z:.2f} MB/s, gzip {mb / wall_g:.2f} MB/s "
-          f"(warm, {BATCH} chunks per batch)")
+          f"zlib {mb / wall_z:.2f} MB/s, gzip {mb / wall_g:.2f} MB/s (warm; above four "
+          f"chunks through the corpus engine at its default batch)")
     print(f"{label}: launches during the timed deflate run: {launches}")
     missing = [k for k, v in launches.items() if v == 0 and k not in skip]
     if missing:
@@ -410,7 +483,8 @@ def main() -> int:
     if raw != dt.deflate_bytes(pg11, device="cpu"):
         raise SystemExit("pg11: CUDA bytes differ from the CPU port's")
     head = mix[: 1 << 20]
-    if dt.deflate_bytes(head, device="cuda") != dt.deflate_bytes(head, device="cpu"):
+    cpu_head = dt.deflate_bytes(head, device="cpu")
+    if dt.deflate_bytes(head, device="cuda") != cpu_head:
         raise SystemExit("mix[:1 MiB]: CUDA bytes differ from the CPU port's")
     print("default: pg11 -> 60196 B; CUDA bytes == CPU port bytes on pg11 and mix[:1 MiB]")
     launches = {"default": timed_run(dt, cuda, mix, O.default(), "default")}
@@ -434,6 +508,252 @@ def main() -> int:
         launches[name] = timed_run(dt, cuda, mix, o, name,
                                    skip=("lr_measure",) if name == "fast" else ())
     print(f"presets: phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------------------------------------- kernels, wide
+    import dataclasses
+
+    from deflate_rs_tpu_torch.models.deflate import compress_stream
+    from deflate_rs_tpu_torch.ops import checksum
+    from deflate_rs_tpu_torch.parallel import corpus
+    from deflate_rs_tpu_torch.write import DeflateEncoder, GzEncoder, ZlibEncoder
+
+    wide_opts = dataclasses.replace(O.default(), chain_scale=WIDE_EMIT // 65536)
+    bufs, hist, ns, last = wide_buffers(mix)
+    with torch.no_grad():
+        seen_wide = harvest(ChunkEncoder(wide_opts, WIDE_EMIT).to(dev),
+                            torch.from_numpy(bufs).to(dev), torch.from_numpy(hist),
+                            torch.from_numpy(ns), torch.from_numpy(last))
+    wide = {}
+    for key, rec in (("lr_measure", "lr_measure"), ("parse_scan", "parse_scan"),
+                     ("token_fields", "token_fields"),
+                     ("lengths_by_rank_15", "lengths_by_rank_15"),
+                     ("lengths_by_rank_7", "lengths_by_rank_7"),
+                     ("quarter_hist_nq8", "quarter_histograms")):
+        args = seen_wide[rec]
+        got, want = kern[key](args), plain[key](args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        del want
+        k_ms = kernel_ms(lambda: kern[key](args))
+        p_ms = cuda_ms(lambda: plain[key](args), 2)
+        bytes_ms, ops_ms = bound_of(key, args, got)
+        bound = max(bytes_ms, ops_ms)
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        print(f"kernel {key} (default, wide) emit={WIDE_EMIT} shapes={shapes}: max_abs_err={err} "
+              f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bound:.5f} ms (bytes "
+              f"{bytes_ms:.5f}, operations {ops_ms:.5f}) share {100 * bound / k_ms:.1f} %")
+        if err != 0:
+            raise SystemExit(f"kernel {key} disagrees with its plain version at emit={WIDE_EMIT}")
+        wide[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "max_abs_err": err}
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    for E, B, seed in kernel_cases.PARSE_CASES_WIDE:
+        steps, n = kernel_cases.parse_scan_batch_wide(E, B, seed)
+        st, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+        if not torch.equal(parse_scan.parse_scan(st, nn), parse_scan.parse_scan_plain(st, nn)):
+            raise SystemExit(f"parse_scan disagrees on the wide case E={E} B={B} seed={seed}")
+    for B, S, N, seed in kernel_cases.LR_CASES_WIDE:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.lr_measure_batch(B, S, N, seed))
+        if not all(torch.equal(g, w) for g, w in zip(lr_kernel.lr_measure(*a, N),
+                                                     lr_kernel.lr_measure_plain(*a, N))):
+            raise SystemExit(f"lr_measure disagrees on the wide case B={B} S={S} N={N} "
+                             f"seed={seed}")
+    for B, E, nq, seed in kernel_cases.HIST_CASES_WIDE:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.hist_batch(B, E, seed))
+        if not all(torch.equal(g, w) for g, w in zip(
+                hist_kernel.quarter_histograms(*a, nq),
+                hist_kernel.quarter_histograms_plain(*a, nq))):
+            raise SystemExit(f"quarter_hist disagrees on the wide case B={B} E={E} nq={nq}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"kernels, wide: adversarial cases equal the plain versions exactly: parse_scan "
+          f"{len(kernel_cases.PARSE_CASES_WIDE)}, lr_measure {len(kernel_cases.LR_CASES_WIDE)}, "
+          f"quarter_hist {len(kernel_cases.HIST_CASES_WIDE)}; phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------------------------------------------- corpus
+    mb = len(mix) / 1e6
+    default = O.default()
+
+    def wall_of(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    old = compress_stream(mix, default, pipelined=False, device="cuda")  # warm
+    new = corpus.compress_corpus(mix, device="cuda")
+    if new.deflate != old.deflate:
+        raise SystemExit("corpus: bytes differ from the chunk-batch engine's on the mix")
+    if (new.adler, new.crc32, new.isize) != (zlib.adler32(mix), zlib.crc32(mix), len(mix)):
+        raise SystemExit("corpus: checksums of the mix are wrong")
+    if corpus.compress_corpus(head, device="cuda").deflate != cpu_head:
+        raise SystemExit("corpus: CUDA bytes differ from the CPU port's on mix[:1 MiB]")
+    if zlib.decompress(corpus.compress_corpus_zlib(mix, device="cuda")) != mix:
+        raise SystemExit("corpus: zlib form does not round-trip")
+    if gzip.decompress(corpus.compress_corpus_gzip(mix, device="cuda")) != mix:
+        raise SystemExit("corpus: gzip form does not round-trip")
+    unpacked = corpus.compress_corpus(mix, packed=False, device="cuda").deflate
+    if zlib.decompress(unpacked, -15) != mix or len(unpacked) <= len(new.deflate):
+        raise SystemExit("corpus: packed=False does not round-trip behind its sync markers")
+    quarter = mix[: 4 << 20]
+    wide_out = corpus.compress_corpus(quarter, chunk_size=WIDE_EMIT, device="cuda").deflate
+    if zlib.decompress(wide_out, -15) != quarter:
+        raise SystemExit("corpus: chunk_size=262144 does not round-trip")
+    if (corpus.compress_corpus(head, chunk_size=WIDE_EMIT, device="cuda").deflate
+            != corpus.compress_corpus(head, chunk_size=WIDE_EMIT, device="cpu").deflate):
+        raise SystemExit("corpus: chunk_size=262144 CUDA bytes differ from the CPU port's")
+    print(f"corpus: 16 MiB mix == chunk-batch engine's bytes; == CPU port on mix[:1 MiB]; zlib, "
+          f"gzip and packed=False ({len(unpacked) - len(new.deflate)} B of markers) round-trip; "
+          f"chunk_size=262144: 4 MiB round-trips at ratio {len(wide_out) / len(quarter):.4f} "
+          f"(64 KiB chunks: {len(corpus.compress_corpus(quarter, device='cuda').deflate) / len(quarter):.4f}), "
+          "== CPU port on mix[:1 MiB]")
+    walls = []
+    for _ in range(3):
+        walls.append(wall_of(lambda: compress_stream(mix, default, pipelined=False,
+                                                   device="cuda"))[1])
+    nw_old = ChunkEncoder(default, 65536).num_words
+    batches = -(-len(mix) // (65536 * BATCH))
+    old_fetch = (BATCH * nw_old * 8 + BATCH * 3 * 8)
+    print(f"corpus: chunk-batch engine (pipelined=False, {BATCH} chunks a batch): "
+          f"{[round(mb / w, 2) for w in walls]} MB/s; fetches {old_fetch} B a batch "
+          f"({batches} batches)")
+    corpus_rates = {}
+    for bs in (16, 32, 64, 128):
+        for qd in (1, 3):
+            corpus.compress_corpus(mix, batch_size=bs, queue_depth=qd, device="cuda")  # warm
+            rates = []
+            for _ in range(3):
+                corpus.reset_fetch_stats()
+                cuda.reset_launches()
+                res, wall = wall_of(lambda: corpus.compress_corpus(
+                    mix, batch_size=bs, queue_depth=qd, device="cuda"))
+                if res.deflate != old.deflate:
+                    raise SystemExit(f"corpus: bytes changed at batch_size={bs} queue_depth={qd}")
+                rates.append(mb / wall)
+            st_ = dict(corpus.fetch_stats)
+            corpus_rates[bs, qd] = rates
+            launches[f"corpus_{bs}_{qd}"] = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+            print(f"corpus: batch_size={bs} queue_depth={qd}: {[round(r, 2) for r in rates]} MB/s; "
+                  f"fetched per batch {(st_['meta_bytes'] + st_['words_bytes']) // st_['batches']} B "
+                  f"(meta {st_['meta_bytes'] // st_['batches']}, words "
+                  f"{st_['words_bytes'] // st_['batches']}; {st_['batches']} batches)")
+    launches["corpus"] = launches[f"corpus_{corpus.BATCH_SIZE}_{corpus.QUEUE_DEPTH}"]
+    missing = [k for k, v in launches["corpus"].items() if v == 0]
+    if missing:
+        raise SystemExit(f"corpus: kernels not launched on its path: {missing}")
+    print(f"corpus: launches during a timed run at the defaults: {launches['corpus']}; phase "
+          f"done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---------------------------------------------------------- streaming
+    one_shot = {
+        DeflateEncoder: dt.deflate_bytes(mix, device="cuda"),
+        ZlibEncoder: dt.deflate_bytes_zlib(mix, device="cuda"),
+        GzEncoder: dt.deflate_bytes_gzip(mix, device="cuda"),
+    }
+    one_shot_quarter = {
+        ZlibEncoder: dt.deflate_bytes_zlib(quarter, device="cuda"),
+        GzEncoder: dt.deflate_bytes_gzip(quarter, device="cuda"),
+    }
+    for cls, want in one_shot.items():
+        cuda.reset_launches()
+        got, wall = wall_of(lambda: stream_through(cls, mix, 1 << 20, device="cuda"))
+        if got != want:
+            raise SystemExit(f"streaming: {cls.__name__} in 1 MiB writes differs from the one-shot")
+        counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+        if cls is DeflateEncoder:
+            launches["streaming"] = counts
+            data99, want99 = mix, want
+        else:
+            data99, want99 = quarter, one_shot_quarter[cls]
+        got99, wall99 = wall_of(lambda: stream_through(cls, data99, 99_991, device="cuda"))
+        if got99 != want99:
+            raise SystemExit(f"streaming: {cls.__name__} in 99,991 B writes differs from the "
+                             "one-shot")
+        print(f"streaming: {cls.__name__} == one-shot CUDA bytes; 1 MiB writes {mb / wall:.2f} "
+              f"MB/s, 99,991 B writes {len(data99) / 1e6 / wall99:.2f} MB/s over "
+              f"{len(data99) >> 20} MiB; launches (1 MiB writes) {counts}")
+    missing = [k for k, v in launches["streaming"].items() if v == 0]
+    if missing:
+        raise SystemExit(f"streaming: kernels not launched on its path: {missing}")
+    flushed = stream_through(ZlibEncoder, quarter, 99_991, flush_every=300_000, device="cuda")
+    if zlib.decompress(flushed) != quarter or flushed.count(b"\x00\x00\xff\xff") < 10:
+        raise SystemExit("streaming: a stream with a flush every 300,000 B does not round-trip")
+    if (stream_through(DeflateEncoder, pg11, 20_000, flush_every=50_000, device="cuda")
+            != stream_through(DeflateEncoder, pg11, 20_000, flush_every=50_000, device="cpu")):
+        raise SystemExit("streaming: flushed pg11 stream differs from the CPU port's")
+    import io
+
+    sink_a, sink_b = io.BytesIO(), io.BytesIO()
+    enc = ZlibEncoder(sink_a, device="cuda")
+    enc.write(pg11)
+    if enc.reset(sink_b) is not sink_a:
+        raise SystemExit("streaming: reset did not return the old writer")
+    enc.write(pg11)
+    enc.finish()
+    if not (sink_a.getvalue() == sink_b.getvalue() == dt.deflate_bytes_zlib(pg11, device="cuda")):
+        raise SystemExit("streaming: reset reuse changed the stream")
+    print("streaming: flush every 300,000 B over 4 MiB round-trips; flushed pg11 CUDA bytes == "
+          "CPU port's; reset reuse gives the one-shot zlib bytes twice")
+    # The single-chunk row: the latency of one chunk alone (B = 1).
+    enc = DeflateEncoder(io.BytesIO(), device="cuda")
+    enc.write(mix[:65536])
+    enc.flush()  # warm
+    cuda.reset_launches()
+    chunk_ms = []
+    for i in range(1, 21):
+        piece = mix[i * 65536 : (i + 1) * 65536]
+        chunk_ms.append(1e3 * wall_of(lambda: (enc.write(piece), enc.flush()))[1])
+    launches["single_chunk"] = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+    enc.finish()
+    small_ms = []
+    for i in range(21):
+        sink = io.BytesIO()
+        piece = mix[i * 4096 : (i + 1) * 4096]
+
+        def small():
+            e = DeflateEncoder(sink, device="cuda")
+            e.write(piece)
+            e.finish()
+
+        ms = 1e3 * wall_of(small)[1]
+        if zlib.decompress(sink.getvalue(), -15) != piece:
+            raise SystemExit("streaming: a 4 KiB stream does not round-trip")
+        if i:
+            small_ms.append(ms)
+    missing = [k for k, v in launches["single_chunk"].items() if v == 0]
+    if missing:
+        raise SystemExit(f"streaming: kernels not launched at B = 1: {missing}")
+    print(f"streaming: single chunk, 64 KiB write + flush(), 20 after a warm one: "
+          f"{spread(chunk_ms)} ms; launches of the 20: {launches['single_chunk']}")
+    print(f"streaming: single chunk, 4 KiB write + finish(), 20 after a warm one: "
+          f"{spread(small_ms)} ms; phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---------------------------------------------------------- checksums
+    enc_cs = ChunkEncoder(default, 65536, with_checksums=True).to(dev)
+    state, raw = checksum.ADLER_INIT, 0
+    offsets = list(range(0, len(mix), 65536))
+    from deflate_rs_tpu_torch.models.deflate import _chunk_buffers
+
+    for b0 in range(0, len(offsets), BATCH):
+        bufs, hist, ns, last = _chunk_buffers(mix, offsets[b0 : b0 + BATCH], 65536)
+        with torch.no_grad():
+            out = enc_cs(torch.from_numpy(bufs).to(dev), torch.from_numpy(hist),
+                         torch.from_numpy(ns), torch.from_numpy(last))
+        parts = torch.stack([out["s1"], out["s2"], out["crc_raw"]]).cpu().numpy()
+        for i in range(len(ns)):
+            state = checksum.adler32_combine(state, int(parts[0, i]), int(parts[1, i]), int(ns[i]))
+            raw = checksum.crc32_combine_raw(raw, int(parts[2, i]), int(ns[i]))
+    if checksum.adler32_value(state) != zlib.adler32(mix):
+        raise SystemExit("checksums: combined Adler-32 partials differ from zlib.adler32")
+    if checksum.crc32_from_raw(raw, len(mix)) != zlib.crc32(mix):
+        raise SystemExit("checksums: combined CRC-32 partials differ from zlib.crc32")
+    print(f"checksums: device partials of {len(offsets)} chunks combine to zlib.adler32 and "
+          f"zlib.crc32 of the mix; phase done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "lr_measure": ("deflate_rs_tpu_torch/csrc/lr_measure.cu", "deflate_rs_tpu/ops/lr_kernel.py:84",
@@ -463,6 +783,11 @@ def main() -> int:
             "launches": launches["default"][name],
             "launches_default": launches["default"][name],
             "launches_high": launches["high"][name],
+            "launches_corpus": launches["corpus"][name],
+            "launches_streaming": launches["streaming"][name],
+            "launches_single_chunk": launches["single_chunk"][name],
+            "wide_ms": sum(wide[k]["ms"] for k in timed),
+            "wide_bound_ms": sum(wide[k]["bound_ms"] for k in timed),
             "max_abs_err": max(results[k]["max_abs_err"] for k in checked),
             "ms": sum(results[k]["ms"] for k in timed),
             "eager_ms": sum(results[k]["eager_ms"] for k in timed),
@@ -475,9 +800,11 @@ def main() -> int:
     print(f"package_merge at high's shape: kernel {high_pm['ms']:.4f} ms plain "
           f"{high_pm['plain_ms']:.4f} ms bound {max(high_pm['bytes_ms'], high_pm['ops_ms']):.5f} ms")
     print(f"done in {time.perf_counter() - t_start:.1f} s; kernels row: launches of the timed "
-          "Default run (the main path) and of the timed high run, 8 batches of 32 chunks each; "
-          "ms (CUDA-graph replay), eager_ms, plain_ms, bound_ms at the 64 KiB tier on "
-          "Default's inputs")
+          "Default run (the main path; above four chunks it is the corpus engine), of the timed "
+          "high run, of a timed corpus run at the defaults, of the DeflateEncoder over the mix "
+          "in 1 MiB writes and of 20 single 64 KiB chunks; ms (CUDA-graph replay), eager_ms, "
+          "plain_ms, bound_ms at the 64 KiB tier on Default's inputs at 32 chunks; wide_ms and "
+          "wide_bound_ms at 8 chunks of 262,144 bytes")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,13 @@ NVIDIA Hopper card in place of its Pallas kernels.  Output is byte-identical
 to the reference.  This package imports ``torch`` and never ``jax``.
 
 Ported so far: the one-shot API at every preset (Default, high, fast, rle,
-huffman_only, turbo) and both force modes.  Every entry takes ``device``
-(default ``"cuda"``).
+huffman_only, turbo) and both force modes; the streaming encoders
+(``write.DeflateEncoder``, ``write.ZlibEncoder``, ``write.gzip.GzEncoder``);
+the batched corpus engine (``parallel.corpus.compress_corpus`` and its zlib
+and gzip forms, chunk sizes up to 256 KiB) with its used-prefix compaction;
+and the device checksums (``ops.checksum``).  Not yet: the decoders, the
+multi-GPU path, the bench.  Every entry takes ``device`` (default
+``"cuda"``).
 """
 
 from .compression_options import (
@@ -26,6 +31,7 @@ from .models.deflate import (
     deflate_bytes_zlib_conf,
 )
 from .models.gzip_header import GzBuilder
+from . import write
 
 __all__ = [
     "Compression",
@@ -40,4 +46,5 @@ __all__ = [
     "deflate_bytes_zlib_conf",
     "deflate_bytes_gzip",
     "deflate_bytes_gzip_conf",
+    "write",
 ]

@@ -45,6 +45,10 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kWordsPerLane = 4;
 constexpr int kSpan = 32 * kWordsPerLane;  // words of a step
 constexpr int kMaxSlots = 64;  // the slot rides in the key's low 6 bits
+// Words of a window at most: base words and winner keys of the padded window
+// and the dominant row fit the 48 KB of shared memory a block has without
+// asking for more (a 256 KiB chunk in 32 segments measures 2,371 words).
+constexpr int kMaxWindow = 5632;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // One chunk's buffer seen as aligned words: `words` is the row's address
@@ -221,7 +225,7 @@ lr_measure_kernel(const uint8_t* __restrict__ bufs, int buf_len,
 extern "C" int lr_measure(const uint8_t* bufs, int buf_len, const int* doms, int B,
                           int S, int M, int L, int LW, int* run_out, int* dist_out,
                           long long* xn_out, cudaStream_t stream) {
-    if (M > kMaxSlots || LW > 1024) return (int)cudaErrorInvalidValue;
+    if (M > kMaxSlots || LW > kMaxWindow) return (int)cudaErrorInvalidValue;
     const int padded = (LW + kSpan - 1) / kSpan * kSpan;
     const size_t shmem = (2 * padded + M) * sizeof(int);
     dim3 grid(S, B);

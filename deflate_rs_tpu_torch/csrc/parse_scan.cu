@@ -7,7 +7,11 @@
 // The parse is the orbit of position 0 under next[i] = i + steps[i], cut at
 // n.  One block per chunk; the chunk is cut into segments of 64 positions,
 // one thread each, so a segment's marks are one 64-bit word that only its
-// thread writes.
+// thread writes.  A chunk wider than 65,536 positions (1,024 segments, what
+// a block's threads and shared memory hold) is parsed in windows of that
+// width, one after the other in the same block: a window's true parse enters
+// where the last token of the window before it lands, and that entry takes
+// the place of "position 0" below.
 //
 // Bound on the card: bytes.  The function reads 4 B and writes 1 B per
 // position (10.5 MB at 32 chunks of 64 KiB, about 3 us at 3.35 TB/s); the
@@ -54,6 +58,7 @@ namespace {
 constexpr int kSeg = 64;         // positions per segment (one mark word)
 constexpr int kSegWords = 33;    // 32 words of uint16 steps + 1 pad word
 constexpr int kNone = 64;        // "no convergence inside the segment"
+constexpr int kWindow = 65536;   // positions parsed in one pass of the block
 
 struct Smem {
     unsigned long long* hyp;     // [S] hypothesis marks
@@ -93,20 +98,34 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
     return (nibble * 0x00204081u) & 0x01010101u;
 }
 
-// S = E / 64 threads, rounded up to whole warps; thread t holds segment t.
+// min(E, kWindow) / 64 threads, rounded up to whole warps; thread t holds
+// segment t of the window in hand.  kWide: the chunk has more than one
+// window; a chunk of one window compiles without the loop and the hand-over.
+template <bool kWide>
 __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __restrict__ ns,
                                   int E, bool* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int S = E / kSeg;
-    const Smem s = carve(smem_raw, S);
+    __shared__ int carry_out;    // the next window's entry, relative to its start
+    const Smem s = carve(smem_raw, min(E, kWindow) / kSeg);
     const int t = threadIdx.x;
     const int b = blockIdx.x;
-    const int n = ns[b];
+    int carry = 0;               // this window's entry (0 for the chunk's first)
+
+  for (int base = 0; base < (kWide ? E : 1); base += kWindow) {
+    const int EW = kWide ? min(kWindow, E - base) : E;   // positions of this window
+    const int S = EW / kSeg;
+    const int n = ns[b] - base;              // payload left from the window's start
     const bool live = t < S;
+    if (n <= 0) {
+        // The payload ended before this window: no token starts here.
+        int4* dst = reinterpret_cast<int4*>(out + (size_t)b * E + base);
+        for (int i = t; i < EW / 16; i += blockDim.x) dst[i] = make_int4(0, 0, 0, 0);
+        continue;
+    }
 
     // ------------------------------------------------------------- load
     if (live) {
-        const int4* src = reinterpret_cast<const int4*>(steps + (size_t)b * E);
+        const int4* src = reinterpret_cast<const int4*>(steps + (size_t)b * E + base);
         int4 v[16];
 #pragma unroll
         for (int k = 0; k < 16; ++k) v[k] = src[t + k * S];
@@ -147,7 +166,7 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
     int entry = seg_start;
     unsigned long long fix = 0;
     int conv = 0;
-    const int want = (live && t > 0) ? s.hexit[t - 1] : entry;
+    const int want = !live ? entry : t > 0 ? s.hexit[t - 1] : kWide ? carry : entry;
     if (want != entry) {
         entry = want;
         int o = max(entry - seg_start, 0);
@@ -172,7 +191,7 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
     }
     {
         const unsigned word = __ballot_sync(0xFFFFFFFFu, stale);
-        if ((t & 31) == 0) s.broken[t >> 5] = word;
+        if ((t & 31) == 0 && (t >> 5) < (S + 31) / 32) s.broken[t >> 5] = word;
     }
     __syncthreads();
 
@@ -201,7 +220,7 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
             int p = s.exit[j - 1];
             int cur = j - 1;     // last segment whose marks are final
             bool holds = false;
-            while (p < n && p < E) {
+            while (p < n && p < EW) {
                 const int g = p >> 6;
                 for (int k = cur + 1; k <= g; ++k) {
                     s.fix[k] = 0;
@@ -223,7 +242,7 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
                 s.fix[g] |= 1ull << o;
                 p += step_at(s.st, p);
             }
-            if (!holds) {        // the parse left the chunk or the payload
+            if (!holds) {        // the parse left the window or the payload
                 for (int k = cur + 1; k <= last_marked; ++k) {
                     s.fix[k] = 0;
                     s.conv[k] = kNone;
@@ -231,13 +250,30 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
                 break;
             }
         }
+        // Where payload follows this window, its last token (inside the last
+        // 258 positions) lands at the next window's entry.
+        int c = 0;
+        if (kWide && n > EW) {
+            for (int g = S - 1; g >= 0; --g) {
+                const int cv = s.conv[g];
+                const unsigned long long m =
+                    s.fix[g] | (s.hyp[g] & (cv >= kNone ? 0ull : ~0ull << cv));
+                if (m) {
+                    const int p = g * kSeg + 63 - __clzll((long long)m);
+                    c = p + step_at(s.st, p) - EW;
+                    break;
+                }
+            }
+        }
+        if (kWide) carry_out = c;
     }
     __syncthreads();
+    if (kWide) carry = carry_out;
 
     // ------------------------------------------------------------ store
     // token = fix-up mark, or hypothesis mark at or after the convergence.
-    int4* dst = reinterpret_cast<int4*>(out + (size_t)b * E);
-    for (int i = t; i < E / 16; i += blockDim.x) {
+    int4* dst = reinterpret_cast<int4*>(out + (size_t)b * E + base);
+    for (int i = t; i < EW / 16; i += blockDim.x) {
         const int g = i >> 2;
         const int c = s.conv[g];
         const unsigned long long keep = c >= kNone ? 0ull : ~0ull << c;
@@ -250,6 +286,7 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
         v.w = (int)spread4(bits >> 12);
         dst[i] = v;
     }
+  }
 }
 
 }  // namespace
@@ -257,12 +294,13 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
 extern "C" int parse_scan(const int* steps, const int* ns, int B, int E, bool* out,
                           cudaStream_t stream) {
     if (B <= 0) return 0;
-    if (E <= 0 || E % kSeg || E / kSeg > 1024) return (int)cudaErrorInvalidValue;
-    const int S = E / kSeg;
+    if (E <= 0 || E % kSeg) return (int)cudaErrorInvalidValue;
+    const int S = (E < kWindow ? E : kWindow) / kSeg;
     const size_t shmem = smem_bytes(S);
+    auto kernel = E > kWindow ? parse_scan_kernel<true> : parse_scan_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        parse_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
-    parse_scan_kernel<<<B, (S + 31) / 32 * 32, shmem, stream>>>(steps, ns, E, out);
+    kernel<<<B, (S + 31) / 32 * 32, shmem, stream>>>(steps, ns, E, out);
     return (int)cudaGetLastError();
 }

@@ -9,9 +9,10 @@ bit-spliced in order on the host (models/assembly.py).  Checksums come from
 the native host runtime.
 
 Every entry takes ``device`` (default ``"cuda"``); nothing picks a device on
-its own.  The JAX package routes inputs above four chunks through its
-batched corpus engine, whose bytes equal its chunk-by-chunk engine's; this
-port's batched engine gives those same bytes for every input size.
+its own.  As in the JAX package, inputs above four chunks go through the
+corpus engine (parallel/corpus.py: flat uploads, compacted fetches, batches
+in flight while the host splices), whose bytes equal this module's own
+chunk-batch engine's.
 """
 
 from __future__ import annotations
@@ -49,9 +50,10 @@ class StreamResult:
 
 
 @functools.lru_cache(maxsize=64)
-def get_chunk_encoder(options: CompressionOptions, emit_size: int, device: str) -> ChunkEncoder:
+def get_chunk_encoder(options: CompressionOptions, emit_size: int, device: str,
+                      with_checksums: bool = False) -> ChunkEncoder:
     """The encoder module for one configuration, on ``device``."""
-    return ChunkEncoder(options, emit_size).to(device)
+    return ChunkEncoder(options, emit_size, with_checksums=with_checksums).to(device)
 
 
 def _chunk_buffers(data: bytes, offsets: list, emit: int) -> tuple:
@@ -71,18 +73,36 @@ def _chunk_buffers(data: bytes, offsets: list, emit: int) -> tuple:
     return bufs, hist, ns, last
 
 
-def compress_stream(data: bytes, options: CompressionOptions, *,
-                    device="cuda", batch_chunks: int = BATCH_CHUNKS) -> StreamResult:
+def compress_stream(data: bytes, options: CompressionOptions, *, packed: bool = True,
+                    pipelined: bool | None = None, device="cuda",
+                    batch_chunks: int = BATCH_CHUNKS) -> StreamResult:
     """Compress ``data`` into a raw DEFLATE stream (with checksums).
 
-    Consecutive blocks are spliced at arbitrary bit phase, the reference's
-    one-shot framing.  ``batch_chunks`` chunks are encoded per device call.
+    ``packed`` (the default) splices consecutive blocks at arbitrary bit
+    phase, the reference's one-shot framing (sync markers only on an explicit
+    flush, compress.rs:257-262).  ``packed=False`` byte-aligns every chunk
+    behind a sync marker.
+
+    ``pipelined`` selects the corpus engine (parallel/corpus.py); by default
+    inputs above four chunks go there.  Both engines give the same bytes;
+    ``pipelined=False`` pins this module's own engine, which encodes
+    ``batch_chunks`` chunks per device call and fetches their whole word
+    buffers.
     """
     check_slice(options)
     n = len(data)
+    if pipelined is None:
+        pipelined = packed and n > 4 * FULL_EMIT
+    if pipelined and packed:
+        from ..parallel.corpus import compress_corpus
+
+        # FULL_EMIT is read here, at call time, so that a changed chunk size
+        # keeps both engines in step.
+        return compress_corpus(data, options, chunk_size=FULL_EMIT, device=device)
     emit = SMALL_EMIT if n <= SMALL_EMIT else FULL_EMIT
     encoder = get_chunk_encoder(options, emit, str(torch.device(device)))
-    asm = BitAssembler(n + n // 128 + 4096)
+    asm = BitAssembler(n + n // 128 + 4096) if packed else None
+    pieces = []
     offsets = list(range(0, n, FULL_EMIT)) if n else [0]
     for b0 in range(0, len(offsets), batch_chunks):
         batch = offsets[b0 : b0 + batch_chunks]
@@ -100,10 +120,14 @@ def compress_stream(data: bytes, options: CompressionOptions, *,
                 raise RuntimeError(
                     f"encoder overflow: {total_bits} bits exceeds the "
                     f"{words.shape[1] * 32}-bit word buffer (bug)")
-            splice_encoded_chunk(asm, btype, data_bits, words[i],
-                                 data[off : off + int(ns[i])], bool(last[i]))
+            if packed:
+                splice_encoded_chunk(asm, btype, data_bits, words[i],
+                                     data[off : off + int(ns[i])], bool(last[i]))
+            else:
+                pieces.append(
+                    words[i].astype("<u4").view(np.uint8)[: (total_bits + 7) // 8].tobytes())
     return StreamResult(
-        deflate=asm.take_aligned(),
+        deflate=asm.take_aligned() if packed else b"".join(pieces),
         adler=native.adler32(data),
         crc32=native.crc32(data),
         isize=n % (1 << 32),

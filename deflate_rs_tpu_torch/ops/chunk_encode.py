@@ -29,6 +29,7 @@ from .. import constants as C
 from ..compression_options import CompressionOptions, SpecialOptions, check_slice
 from .bitpack import pack_fields
 from .canonical import canonical_codes
+from .checksum import CRC_TABLE, adler32_parts_device, crc32_raw_device, shift_byte_tables
 from .code_lengths import CL_CAP, encode_code_lengths
 from .field_kernel import token_fields
 from .hist_kernel import quarter_histograms
@@ -102,12 +103,23 @@ def _gather_slots(x: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
 
 
 class ChunkEncoder(nn.Module):
-    """Encode a batch of chunks at one (options, emit_size) configuration."""
+    """Encode a batch of chunks at one (options, emit_size) configuration.
 
-    def __init__(self, options: CompressionOptions, emit_size: int):
+    ``with_checksums`` adds the Adler-32 and raw CRC-32 partials of each
+    payload to the outputs (``s1``, ``s2``, ``crc_raw``), for callers that
+    never read the payload on the host.  ``stored_payload_fields=False``
+    leaves the stored sub-blocks out of the bit pack: the compacted consumers
+    (the corpus engine, the streaming encoders' batched path) never read a
+    stored chunk's words, since the host re-emits it from the raw payload;
+    ``total_bits`` and ``data_bits`` stay exact either way."""
+
+    def __init__(self, options: CompressionOptions, emit_size: int, *,
+                 with_checksums: bool = False, stored_payload_fields: bool = True):
         super().__init__()
         check_slice(options)
         self.options = options
+        self.with_checksums = with_checksums
+        self.stored_payload_fields = stored_payload_fields
         self.E = emit_size
         self.N = HALO + emit_size
         sc = self.sc = SplitCfg(options.num_quarters)
@@ -138,6 +150,9 @@ class ChunkEncoder(nn.Module):
         buf("dh_bits", [5, 5, 4])
         buf("sh_bits", [3, 5, 16, 16])
         buf("sy_vals", [0, 0, 0x0000, 0xFFFF])
+        if with_checksums:
+            buf("crc_table", CRC_TABLE)
+            buf("crc_shift_tables", shift_byte_tables(emit_size))
 
     @staticmethod
     def _code_lengths(l_freq, d_freq):
@@ -193,7 +208,8 @@ class ChunkEncoder(nn.Module):
         payload at HALO .. HALO + n).  ``hist_len``, ``n``: int[B];
         ``is_last``: bool[B].  Returns the JAX ``encode_chunk`` dict with a
         leading batch axis: ``words`` (int64 holding uint32), ``total_bits``,
-        ``data_bits``, ``btype``, ``ntokens``."""
+        ``data_bits``, ``btype``, ``ntokens``, and with ``with_checksums``
+        ``s1``, ``s2``, ``crc_raw``."""
         opt = self.options
         E, N, sc = self.E, self.N, self.sc
         nq = sc.nq
@@ -420,11 +436,12 @@ class ChunkEncoder(nn.Module):
         sub_len = (n[:, None] - sub_k * SB).clamp(0, SB)
         last_sub = (n_sub - 1).clamp(min=0)
         sub_final = (sub_k == last_sub[:, None]) & is_last[:, None]
-        p = pack_words_aligned(bufs[:, HALO : HALO + E])
-        wj = torch.arange(E // 4, device=dev)
-        pb_b_all = 8 * (n[:, None] - 4 * wj).clamp(0, 4)
         st_v, st_b = [], []
-        for k in range(n_sub_static):
+        if self.stored_payload_fields:
+            p = pack_words_aligned(bufs[:, HALO : HALO + E])
+            wj = torch.arange(E // 4, device=dev)
+            pb_b_all = 8 * (n[:, None] - 4 * wj).clamp(0, 4)
+        for k in range(n_sub_static if self.stored_payload_fields else 0):
             on = (is_stored & sub_present[:, k])[:, None]
             st_v.append(torch.stack([sub_final[:, k].long(), torch.zeros_like(n),
                                      sub_len[:, k], (~sub_len[:, k]) & 0xFFFF], dim=-1))
@@ -445,13 +462,23 @@ class ChunkEncoder(nn.Module):
         values = torch.cat([seg_v, *st_v, sy_v], dim=1)
         nbits = torch.cat([seg_b, *st_b, sy_b], dim=1)
         words, total_bits = pack_fields(values, nbits, self.num_words)
-        return {
+        if not self.stored_payload_fields:
+            # Stored chunks packed no fields: their exact size comes from the
+            # cost model, data_bits plus the sync marker as for Huffman chunks.
+            sync_bits = torch.where(is_last, 0, 3 + sync_pad + 32)
+            total_bits = torch.where(is_stored, data_bits + sync_bits, total_bits)
+        out = {
             "words": words,
             "total_bits": total_bits,
             "data_bits": data_bits,
             "btype": btype,
             "ntokens": count,
         }
+        if self.with_checksums:
+            payload = bufs[:, HALO : HALO + E]
+            out["s1"], out["s2"] = adler32_parts_device(payload, n)
+            out["crc_raw"] = crc32_raw_device(payload, n, self.crc_table, self.crc_shift_tables)
+        return out
 
 
 def pack_words_aligned(payload: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ _KERNEL = cuda.register("lr_measure", [
 ])
 
 MAX_SLOTS = 64  # dominants per segment the kernel's winner key has room for
+MAX_WINDOW_WORDS = 5632  # words per segment a block's shared memory holds
 
 
 def window_words(N: int, S: int) -> int:
@@ -87,7 +88,7 @@ def lr_measure(buf: torch.Tensor, doms: torch.Tensor, N: int):
     B, S, M = doms.shape
     L = N // S
     LW = window_words(N, S)
-    if N % (4 * S) or LW > 1024 or M > MAX_SLOTS:
+    if N % (4 * S) or LW > MAX_WINDOW_WORDS or M > MAX_SLOTS:
         raise ValueError(f"lr_measure: unsupported geometry N={N}, S={S}, M={M}")
     cuda.check_cuda(buf, "buf", torch.uint8, (B, buf.shape[1]))
     cuda.check_cuda(doms, "doms", torch.int32, (B, S, M))

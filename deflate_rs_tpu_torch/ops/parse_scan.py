@@ -4,7 +4,8 @@ Replaces the Pallas kernel ``deflate_rs_tpu/ops/parse_scan.py::_kernel``
 (entry ``parse_scan_batched``).  The sequential parse of a chunk is the
 orbit of position 0 under ``next[i] = i + steps[i]``, cut at the payload
 length ``n``.  The CUDA kernel (``csrc/parse_scan.cu``) cuts the chunk into
-segments of 64 positions, one thread each: every segment parses
+segments of 64 positions, one thread each (a chunk wider than 65,536
+positions in windows of that width, one after the other): every segment parses
 hypothetically from its own first position, then again, speculatively, from
 the previous segment's hypothesis exit until it meets a hypothesis token
 (after which the two parses coincide); one thread then repairs, serially,
@@ -50,7 +51,7 @@ def parse_scan(steps: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     if not steps.is_cuda:
         return parse_scan_plain(steps, n)
     B, E = steps.shape
-    if E > 65536 or E % 256:
+    if E % 256:
         raise ValueError(f"parse_scan: unsupported chunk width E={E}")
     cuda.check_cuda(steps, "steps", torch.int32, (B, E))
     cuda.check_cuda(n, "n", torch.int32, (B,))

@@ -29,9 +29,9 @@ from ..constants import MAX_CODE_LENGTH
 
 TABLE_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "data", "proxy_roundup.npy")
-# Largest symbol total a range histogram reaches: 65,536 tokens plus EOB,
-# with margin.
-TOT_MAX = 65601
+# Largest symbol total a range histogram reaches: the 262,144 tokens of the
+# widest chunk the corpus engine takes, plus EOB, with margin.
+TOT_MAX = 262209
 K_MAX = MAX_CODE_LENGTH - 1  # at k = 15 the clip hides any round-up
 
 

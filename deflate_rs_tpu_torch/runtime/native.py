@@ -55,12 +55,41 @@ def _load():
         lib.bit_append.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ]
+        lib.assemble_chunks.restype = ctypes.c_int64
+        lib.assemble_chunks.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ]
         lib.crc32_raw.restype = ctypes.c_uint32
         lib.crc32_raw.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
         lib.adler32.restype = ctypes.c_uint32
         lib.adler32.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
         _lib = lib
         return _lib
+
+
+def assemble_chunks(words: np.ndarray, nbytes: np.ndarray) -> bytes:
+    """Concatenate per-chunk payloads.  words: uint8[n_chunks, stride]."""
+    lib = _load()
+    if words.dtype != np.uint8 or words.ndim != 2:
+        # The C side measures the stride in bytes: a 32-bit view passed by
+        # mistake would be read at a quarter of the real stride.
+        raise TypeError(f"words must be uint8[n_chunks, stride], got {words.dtype}{words.shape}")
+    nbytes = np.ascontiguousarray(nbytes, np.int64)
+    if nbytes.shape != (words.shape[0],):
+        raise ValueError(f"nbytes shape {nbytes.shape} != ({words.shape[0]},)")
+    if nbytes.size and (int(nbytes.max()) > words.shape[1] or int(nbytes.min()) < 0):
+        raise ValueError(
+            f"chunk byte count out of range for stride {words.shape[1]}: "
+            f"{int(nbytes.min())}..{int(nbytes.max())}")
+    if lib is None:
+        return b"".join(words[i, : int(nbytes[i])].tobytes() for i in range(words.shape[0]))
+    out = np.empty(int(nbytes.sum()), np.uint8)
+    words = np.ascontiguousarray(words)
+    rc = lib.assemble_chunks(out.ctypes.data, words.ctypes.data, words.shape[1],
+                             nbytes.ctypes.data, words.shape[0])
+    if rc != 0:
+        raise ValueError("assemble_chunks: chunk byte count out of range (native)")
+    return out.tobytes()
 
 
 def bit_append(dst: bytearray, dst_bits: int, src: bytes, src_bits: int) -> int:

@@ -88,6 +88,37 @@ PARSE_CASES = ([(4096, 1, s) for s in range(6)]
                + [(4096, 32, 0), (4096, 33, 1), (65536, 1, 3), (65536, 32, 0), (65536, 33, 1)])
 
 
+WINDOW = 65536  # positions the CUDA parse kernel holds at once (csrc/parse_scan.cu)
+
+
+def parse_payloads_wide(E: int) -> list:
+    """Payload lengths of a chunk wider than one window of the parse kernel:
+    the ends, and values on either side of a window's edge."""
+    return [E, WINDOW, WINDOW + 1, WINDOW - 1, E // 2 + 37, E - WINDOW + 1, E - SEG - 5, 0]
+
+
+def parse_scan_batch_wide(E: int, B: int, seed: int = 0):
+    """As :func:`parse_scan_batch` for chunks of several windows.  The
+    patterns hand every kind of entry from a window to the next: ``ones`` and
+    ``text`` enter at or near the edge, ``max`` (258 everywhere) lands 2 to
+    254 positions inside, past whole segments, ``never_converge`` enters off
+    phase by one, and ``jump_over`` jumps from a window's last position."""
+    rng = np.random.default_rng(1000 * seed + E + B)
+    ns = parse_payloads_wide(E)
+    steps = np.stack([parse_steps(PARSE_PATTERNS[(r + seed) % len(PARSE_PATTERNS)], rng, E)
+                      for r in range(B)])
+    for r in range(B):
+        if PARSE_PATTERNS[(r + seed) % len(PARSE_PATTERNS)] == "jump_over":
+            steps[r, WINDOW - 1 :: WINDOW] = 258  # taken or not, as the text before it falls
+            steps[r, WINDOW - 2 :: WINDOW] = 1
+    n = np.array([ns[(r + seed) % len(ns)] for r in range(B)], np.int32)
+    return steps, n
+
+
+# (E, B, seed): two and four windows; every pattern and every payload once.
+PARSE_CASES_WIDE = [(131072, 6, 0), (262144, 6, 1), (262144, 8, 3), (196608, 2, 4)]
+
+
 def sorted_leaves(freqs: np.ndarray) -> np.ndarray:
     """Leaf values by rank, int32[R, A]: the used frequencies ascending,
     ``BIG`` for unused symbols (the operand of ``lengths_by_rank``)."""
@@ -287,6 +318,13 @@ LR_CASES = ([(1, S, N, seed) for S, N in ((64, 98304), (32, 98304), (64, 36864))
             + [(32, 64, 98304, 0), (33, 32, 98304, 1), (33, 64, 36864, 2), (32, 32, 36864, 3)])
 
 
+# (B, S, N, seed): chunks of 128 and 256 KiB with their 32 KiB of history, at
+# Default's 64 segments (windows of 707 and 1,219 words) and high's 32 (1,347
+# and 2,371 words).
+LR_CASES_WIDE = ([(1, 64, 294912, seed) for seed in range(len(LR_PATTERNS))]
+                 + [(1, 32, 294912, 1), (1, 32, 163840, 4), (3, 64, 163840, 2)])
+
+
 # ----------------------------------------------------------- quarter_hist
 
 HIST_PATTERNS = ("one_symbol", "out_of_range", "negatives", "edges", "text")
@@ -328,6 +366,7 @@ def hist_batch(B: int, E: int, seed: int = 0):
 
 # (B, E, nq, seed): one chunk in every pattern and a batch past 32, in both
 # tiers, at every number of quarters a preset uses.
+HIST_CASES_WIDE = [(2, 262144, nq, seed) for nq, seed in ((1, 0), (4, 1), (8, 2), (8, 4))]
 HIST_CASES = ([(1, E, nq, seed) for E in (4096, 65536) for nq in (1, 2, 4, 8)
                for seed in range(len(HIST_PATTERNS))]
               + [(33, E, nq, 0) for E in (4096, 65536) for nq in (1, 2, 4, 8)])

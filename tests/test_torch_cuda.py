@@ -35,7 +35,10 @@ def _same(got, want):
 
 @pytest.mark.parametrize("N,S,M", [(98304, 64, 48), (36864, 64, 48), (4096, 8, 6),
                                    (98304, 32, 48), (36864, 32, 48),
-                                   (29888, 8, 6)])  # the last: a window of 1,001 words
+                                   (29888, 8, 6),  # a window of 1,001 words
+                                   # chunks of 128 and 256 KiB: windows of 707 to 2,371 words
+                                   (163840, 64, 48), (294912, 64, 48), (163840, 32, 48),
+                                   (294912, 32, 48)])
 def test_lr_measure(dev, N, S, M):
     rng = np.random.default_rng(N)
     B = 3
@@ -51,7 +54,7 @@ def test_lr_measure(dev, N, S, M):
     _same(lr_kernel.lr_measure(buf, d, N), lr_kernel.lr_measure_plain(buf, d, N))
 
 
-@pytest.mark.parametrize("E", [4096, 65536])
+@pytest.mark.parametrize("E", [4096, 65536, 131072, 262144, 65536 + 4096])
 def test_parse_scan(dev, E):
     rng = np.random.default_rng(E)
     B = 5
@@ -78,7 +81,8 @@ def test_package_merge(dev, max_len, A):
     _same(pm_kernel.lengths_by_rank(x, max_len), pm_kernel.lengths_by_rank_plain(x, max_len))
 
 
-@pytest.mark.parametrize("E,nq", [(4096, 8), (65536, 8), (2048, 1), (65536, 1), (4096, 4)])
+@pytest.mark.parametrize("E,nq", [(4096, 8), (65536, 8), (2048, 1), (65536, 1), (4096, 4),
+                                  (262144, 8), (131072, 1)])
 def test_token_fields(dev, E, nq):
     rng = np.random.default_rng(E + nq)
     B = 3
@@ -99,7 +103,7 @@ def test_token_fields(dev, E, nq):
     _same(field_kernel.token_fields(*t), field_kernel.token_fields_plain(*t))
 
 
-@pytest.mark.parametrize("E", [4096, 65536])
+@pytest.mark.parametrize("E", [4096, 65536, 262144])
 @pytest.mark.parametrize("nq", [1, 4, 8])
 def test_quarter_hist(dev, E, nq):
     rng = np.random.default_rng(E + nq)
@@ -129,6 +133,14 @@ def test_parse_scan_adversarial(dev, E, B, seed):
     _same(parse_scan.parse_scan(s, nn), parse_scan.parse_scan_plain(s, nn))
 
 
+@pytest.mark.parametrize("E,B,seed", kernel_cases.PARSE_CASES_WIDE)
+def test_parse_scan_adversarial_wide(dev, E, B, seed):
+    """Chunks of several windows of the kernel: every kind of hand-over."""
+    steps, n = kernel_cases.parse_scan_batch_wide(E, B, seed)
+    s, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+    _same(parse_scan.parse_scan(s, nn), parse_scan.parse_scan_plain(s, nn))
+
+
 _PM_CASES = kernel_cases.package_merge_cases()
 
 
@@ -141,7 +153,7 @@ def test_package_merge_adversarial(dev, name, freqs, max_len):
         _same(got, pm_kernel.lengths_by_rank_plain(x, max_len))
 
 
-@pytest.mark.parametrize("B,S,N,seed", kernel_cases.LR_CASES)
+@pytest.mark.parametrize("B,S,N,seed", kernel_cases.LR_CASES + kernel_cases.LR_CASES_WIDE)
 def test_lr_measure_adversarial(dev, B, S, N, seed):
     buf, doms = (torch.from_numpy(a).to(dev) for a in kernel_cases.lr_measure_batch(B, S, N, seed))
     _same(lr_kernel.lr_measure(buf, doms, N), lr_kernel.lr_measure_plain(buf, doms, N))
@@ -158,7 +170,7 @@ def test_lr_measure_unaligned_rows(dev, shift):
     _same(lr_kernel.lr_measure(b, d, N), lr_kernel.lr_measure_plain(b, d, N))
 
 
-@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES)
+@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES + kernel_cases.HIST_CASES_WIDE)
 def test_quarter_hist_adversarial(dev, B, E, nq, seed):
     ls, dc = (torch.from_numpy(a).to(dev) for a in kernel_cases.hist_batch(B, E, seed))
     _same(hist_kernel.quarter_histograms(ls, dc, nq),
@@ -192,9 +204,9 @@ def test_wrappers_refuse_unsupported_shapes(dev):
     with pytest.raises(ValueError):
         parse_scan.parse_scan(torch.ones((1, 4096 + 64), dtype=torch.int32, device=dev),
                               torch.ones(1, dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError):
-        parse_scan.parse_scan(torch.ones((1, 131072), dtype=torch.int32, device=dev),
-                              torch.ones(1, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # a window of more words than a block's shared memory holds
+        lr_kernel.lr_measure(torch.zeros((1, 32768 + 72), dtype=torch.uint8, device=dev),
+                             torch.ones((1, 1, 4), dtype=torch.int32, device=dev), 32768)
     with pytest.raises(ValueError):
         pm_kernel.lengths_by_rank(torch.ones((1, 513), dtype=torch.int32, device=dev), 15)
     with pytest.raises(ValueError):  # more slots than the winner key has room for

@@ -67,7 +67,7 @@ def measure_bytewise(buf: np.ndarray, doms: np.ndarray, N: int):
     return run, dist, xn
 
 
-@pytest.mark.parametrize("B,S,N,seed", kernel_cases.LR_CASES)
+@pytest.mark.parametrize("B,S,N,seed", kernel_cases.LR_CASES + kernel_cases.LR_CASES_WIDE)
 def test_lr_measure_plain_equals_bytewise(B, S, N, seed):
     bufs, doms = kernel_cases.lr_measure_batch(B, S, N, seed)
     assert bufs.shape == (B, N + kernel_cases.LR_PAD) and doms.shape == (B, S, 48)
@@ -187,7 +187,8 @@ def test_lr_walk_model_equals_plain(seed, extra):
             np.testing.assert_array_equal(g, w[b].numpy())
 
 
-@pytest.mark.parametrize("S,N", [(64, 98304), (32, 98304), (64, 36864)])
+@pytest.mark.parametrize("S,N", [(64, 98304), (32, 98304), (64, 36864), (64, 294912),
+                                 (32, 294912)])
 def test_lr_walk_model_equals_plain_at_preset_shapes(S, N):
     """A few segments of every pattern at the presets' geometry: the first
     (before the buffer), the last (against the pad), dead, holed, duplicated
@@ -214,7 +215,9 @@ def _local_lengths_both(buf, doms, N, S, M, sel):
     return d_cand, nt, hs, want, got
 
 
-@pytest.mark.parametrize("S,N,sel", [(64, 98304, "run"), (32, 98304, "freq"), (64, 36864, "run")])
+@pytest.mark.parametrize("S,N,sel", [(64, 98304, "run"), (32, 98304, "freq"), (64, 36864, "run"),
+                                     (64, 294912, "run"), (32, 294912, "freq"),
+                                     (64, 163840, "run")])
 @pytest.mark.parametrize("pattern", kernel_cases.LR_PATTERNS)
 def test_lr_local_lengths_equal_jax(pattern, S, N, sel):
     rng = np.random.default_rng(S + N)
@@ -243,7 +246,7 @@ def test_lr_local_lengths_equal_jax_kernel(pattern):
         np.testing.assert_array_equal(g[0].numpy(), np.asarray(k))
 
 
-@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES)
+@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES + kernel_cases.HIST_CASES_WIDE)
 def test_quarter_hist_cases_equal_jax_kernel(B, E, nq, seed):
     lsym, dcode = kernel_cases.hist_batch(B, E, seed)
     lf, df = hist_kernel.quarter_histograms(torch.from_numpy(lsym), torch.from_numpy(dcode), nq)

@@ -107,10 +107,12 @@ def test_adversarial_parse_equals_jax(E, B, seed):
     np.testing.assert_array_equal(got, want)
 
 
-def speculative_parse_model(steps, n, rounds):
-    """The CUDA kernel's algorithm for one chunk: hypotheses, ``rounds``
-    rounds of speculative re-walks (the kernel ships one), then the serial
-    repair, which has to be right after any number of rounds."""
+def speculative_parse_model(steps, n, rounds, carry=0):
+    """The CUDA kernel's algorithm for one window of a chunk (the whole chunk
+    up to 65,536 positions): hypotheses, ``rounds`` rounds of speculative
+    re-walks (the kernel ships one), then the serial repair, which has to be
+    right after any number of rounds.  The true parse enters at ``carry``
+    (0 for a chunk's first window; ``rounds`` >= 1 otherwise)."""
     E = len(steps)
     S = E // SEG
     steps = steps.tolist()
@@ -126,7 +128,7 @@ def speculative_parse_model(steps, n, rounds):
     entry = [s * SEG for s in range(S)]
     fix, conv, exit_ = [0] * S, [0] * S, list(hexit)
     for _ in range(rounds):  # phase 2: re-walk where the predecessor's exit moved
-        want = [entry[0]] + exit_[:-1]
+        want = [carry] + exit_[:-1]
         stale = [s for s in range(S) if want[s] != entry[s]]
         if not stale:
             break
@@ -203,3 +205,60 @@ def test_speculation_is_exercised():
     assert truth[1:2048:SEG].all() and not truth[SEG:2048:SEG].any()
     for rounds in (0, 1, 4):
         np.testing.assert_array_equal(speculative_parse_model(steps, n, rounds), truth)
+
+
+# ---------------------------------------------------------------------------
+# Chunks wider than one window of the CUDA kernel (65,536 positions): the
+# kernel parses window after window, each entered where the last token of the
+# window before it lands.
+# ---------------------------------------------------------------------------
+
+from deflate_rs_tpu_torch.utils.kernel_cases import (  # noqa: E402
+    PARSE_CASES_WIDE, WINDOW, parse_scan_batch_wide)
+
+
+def windowed_parse_model(steps, n, window=WINDOW):
+    """``csrc/parse_scan.cu`` for a chunk of several windows."""
+    E = len(steps)
+    out = np.zeros(E, bool)
+    carry = 0
+    for base in range(0, E, window):
+        ew = min(window, E - base)
+        left = n - base
+        if left <= 0:
+            break
+        marks = speculative_parse_model(steps[base : base + ew], left, 1, carry)
+        out[base : base + ew] = marks
+        if left > ew:
+            last = int(np.flatnonzero(marks)[-1])
+            carry = last + int(steps[base + last]) - ew
+    return out
+
+
+@pytest.mark.parametrize("E,B,seed", PARSE_CASES_WIDE)
+def test_wide_parse_equals_jax_and_serial(E, B, seed):
+    """Tolerance 0 (booleans): the plain twin, the JAX package's
+    ``parse.reachable``, the serial walk and the windowed model of the CUDA
+    kernel agree on every row."""
+    steps, ns = parse_scan_batch_wide(E, B, seed)
+    got = _plain(steps, ns)
+    pos = jnp.arange(E, dtype=jnp.int32)
+    for b in range(B):
+        nxt = jnp.minimum(pos + steps[b], E)
+        reach = jp.reachable(jnp.concatenate([nxt, jnp.full(1, E, jnp.int32)]), 0)
+        np.testing.assert_array_equal(got[b], np.asarray(reach[:E] & (pos < ns[b])))
+        truth = serial_parse(steps[b], ns[b])
+        np.testing.assert_array_equal(got[b], truth, err_msg=f"row {b}")
+        np.testing.assert_array_equal(windowed_parse_model(steps[b], int(ns[b])), truth,
+                                      err_msg=f"row {b}")
+
+
+@pytest.mark.parametrize("window", [256, 1024, 2048])
+@pytest.mark.parametrize("E,B,seed", [(4096, 12, s) for s in range(3)])
+def test_windowed_model_small_windows(E, B, seed, window):
+    """The window hand-over at small sizes, where every pattern meets many
+    window edges."""
+    steps, ns = parse_scan_batch(E, B, seed)
+    for b in range(B):
+        np.testing.assert_array_equal(windowed_parse_model(steps[b], int(ns[b]), window),
+                                      serial_parse(steps[b], ns[b]), err_msg=f"row {b}")
