@@ -10,13 +10,19 @@ Phases (each prints a line; any failure exits non-zero):
    name and power limit and builds the CUDA kernels from
    ``deflate_rs_tpu_torch/csrc``.
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, in both emit tiers (4 KiB and 64 KiB), on inputs harvested
-   from the encoders' own runs over 32 chunks of the mix below: Default
-   (every kernel; quarter histograms at nq = 8), fast (nq = 1), rle
-   (nq = 4) and high (lr_measure at 32 segments, package-merge at its
-   2,304 rows).  Exact equality is required.  ``lr_measure`` and the
-   quarter histograms are also checked and timed on one chunk alone
-   (B = 1).  Then the adversarial operands of
+   the card, on inputs harvested from the encoders' own runs over chunks of
+   the mix below: Default (every kernel; quarter histograms at nq = 8),
+   fast (nq = 1), rle (nq = 4) and high (lr_measure at 32 segments,
+   package-merge at its many rows).  Exact equality is required at every
+   batch the paths below launch.  In the 64 KiB tier: the corpus engine's
+   batch (``corpus.BATCH_SIZE`` chunks, the shape of the one-shot and the
+   corpus run: every kernel timed there, and the ``kernels`` line's ``ms``,
+   ``plain_ms`` and ``bound_ms`` are at that batch), one chunk alone (B = 1,
+   the single-chunk streaming path: every kernel timed again, ``b1_ms``),
+   15 and 16 chunks (a 1 MiB write to a streaming encoder) and 32 (the
+   chunk-batch engine, ``pipelined=False``).  In the 4 KiB tier: 32 streams
+   of 4 KiB, timed, and one alone, the only batch that tier is launched at.
+   Then the adversarial operands of
    ``deflate_rs_tpu_torch/utils/kernel_cases.py`` go through ``parse_scan``,
    ``package_merge``, ``lr_measure`` and ``quarter_hist`` and their plain
    versions, exact equality again.  Prints per kernel: its time (CUDA events around replays
@@ -180,20 +186,20 @@ def bincount_yardstick(args, outs):
     return cuda_ms(lambda: torch.bincount(flat, minlength=trash + 1), 20), same
 
 
-def tier_buffers(mix: bytes, emit: int):
+def tier_buffers(mix: bytes, emit: int, batch: int = BATCH):
     """The encoder's operands for one batch of the mix in the emit tier:
-    the first 32 chunks of 64 KiB with their history, or 32 pieces of 4 KiB
-    (each a stream of its own) for the small tier."""
+    the first ``batch`` chunks of 64 KiB with their history, or ``batch``
+    pieces of 4 KiB (each a stream of its own) for the small tier."""
     import numpy as np
 
     from deflate_rs_tpu_torch.models.deflate import _chunk_buffers
 
     if emit == 65536:
-        return _chunk_buffers(mix, [i * 65536 for i in range(BATCH)], emit)
-    pieces = [mix[i * 4096 * 7 : i * 4096 * 7 + 4096] for i in range(BATCH)]
+        return _chunk_buffers(mix, [i * 65536 for i in range(batch)], emit)
+    pieces = [mix[i * 4096 * 7 : i * 4096 * 7 + 4096] for i in range(batch)]
     bufs = np.stack([_chunk_buffers(p, [0], emit)[0][0] for p in pieces])
-    return (bufs, np.zeros(BATCH, np.int64), np.full(BATCH, 4096, np.int64),
-            np.ones(BATCH, bool))
+    return (bufs, np.zeros(batch, np.int64), np.full(batch, 4096, np.int64),
+            np.ones(batch, bool))
 
 
 def harvest(encoder, bufs, hist, ns, last):
@@ -320,7 +326,9 @@ def main() -> int:
     import deflate_rs_tpu_torch as dt
     from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
                                           pm_kernel)
+    from deflate_rs_tpu_torch.models.deflate import BATCH_CHUNKS
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+    from deflate_rs_tpu_torch.parallel import corpus
     from deflate_rs_tpu_torch.runtime import cuda
     from deflate_rs_tpu_torch.utils import kernel_cases
 
@@ -395,23 +403,58 @@ def main() -> int:
     }
     harvest_opts = {"default": O.default(), "fast": O.fast(), "rle": O.rle(), "high": O.high()}
     results = {}
-    for emit in (4096, 65536):
-        bufs, hist, ns, last = tier_buffers(mix, emit)
+    encoders = {}
+    kb = corpus.BATCH_SIZE
+
+    def harvest_rows(operands, emit, lo, hi):
+        """What each preset's encoder hands the kernels for rows lo..hi of
+        ``operands`` (one batch of the emit tier)."""
         seen = {}
         for name, o in harvest_opts.items():
-            enc = ChunkEncoder(o, emit).to(dev)
+            if (name, emit) not in encoders:
+                encoders[name, emit] = ChunkEncoder(o, emit).to(dev)
+            bufs, hist, ns, last = (torch.from_numpy(a[lo:hi]) for a in operands)
             with torch.no_grad():
-                seen[name] = harvest(enc, torch.from_numpy(bufs).to(dev), torch.from_numpy(hist),
-                                     torch.from_numpy(ns), torch.from_numpy(last))
+                seen[name] = harvest(encoders[name, emit], bufs.to(dev), hist, ns, last)
+        return seen
+
+    def compare(key, args):
+        """(the kernel's outputs, max_abs_err against the plain version)."""
+        got, want = kern[key](args), plain[key](args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        return got, err
+
+    # (emit, first row, end row, what launches that batch, timed).  The rows
+    # of a batch smaller than the tier's start at chunk 1, which has its
+    # 32 KiB of history as every chunk of a stream but the first has.
+    batches = [
+        (4096, 0, BATCH, "32 streams of 4 KiB", True),
+        (4096, 3, 4, "one 4 KiB stream, the small tier's only batch", False),
+        (65536, 0, kb, "the corpus engine's batch: one-shot and corpus runs", True),
+        (65536, 1, 2, "one chunk: the single-chunk streaming path", True),
+        (65536, 1, 16, "a 1 MiB write to a streaming encoder, one byte held back", False),
+        (65536, 0, 16, "a 1 MiB write to a streaming encoder", False),
+        (65536, 0, BATCH_CHUNKS, "the chunk-batch engine, pipelined=False", False),
+    ]
+    tiers = {emit: tier_buffers(mix, emit, max(kb, BATCH)) for emit in (4096, 65536)}
+    for emit, lo, hi, what, timed in batches:
+        B = hi - lo
+        seen = harvest_rows(tiers[emit], emit, lo, hi)
         for key in plain:
             preset, rec = source[key]
             args = seen[preset][rec]
-            got, want = kern[key](args), plain[key](args)
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            torch.cuda.synchronize()
-            err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-                      for g, w in zip(got, want))
+            got, err = compare(key, args)
+            r = results.setdefault(key, {"max_abs_err": 0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if err != 0:
+                raise SystemExit(f"kernel {key} disagrees with its plain version at emit={emit} "
+                                 f"B={B} ({what}): max_abs_err={err}")
+            if not timed:
+                continue
             shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
             k_ms = kernel_ms(lambda: kern[key](args))
             e_ms = cuda_ms(lambda: kern[key](args), 50)
@@ -422,27 +465,21 @@ def main() -> int:
                 lib_ms, same = bincount_yardstick(args, got)
                 if not same:
                     raise SystemExit(f"{key}: the bincount yardstick computes another function")
-            print(f"kernel {key} ({preset}) emit={emit} shapes={shapes}: max_abs_err={err} "
+            print(f"kernel {key} ({preset}) emit={emit} B={B} shapes={shapes}: max_abs_err={err} "
                   f"kernel {k_ms:.4f} ms (eager loop {e_ms:.4f}) plain {p_ms:.4f} ms "
                   f"bound {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f}, operations "
                   f"{ops_ms:.5f})" + (f" bincount {lib_ms:.4f} ms" if lib_ms is not None else ""))
-            if err != 0:
-                raise SystemExit(f"kernel {key} disagrees with its plain version at emit={emit}")
-            r = results.setdefault(key, {"max_abs_err": 0})
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if emit == 65536:
+            if emit == 65536 and B == kb:
                 r.update(ms=k_ms, eager_ms=e_ms, plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                          library_ms=lib_ms)
-            if emit == 65536 and key in ("lr_measure", "quarter_hist_nq8", "quarter_hist_nq1"):
-                # One chunk alone: the shape a streaming encoder would launch.
-                one = tuple(a[:1].contiguous() if torch.is_tensor(a) else a for a in args)
-                got1, want1 = kern[key](one), plain[key](one)
-                if not all(torch.equal(g, w) for g, w in zip(got1, want1)):
-                    raise SystemExit(f"kernel {key} disagrees with its plain version at B=1")
-                b1, o1 = bound_of(key, one, got1)
-                print(f"kernel {key} ({preset}) emit={emit} B=1: max_abs_err=0 kernel "
-                      f"{kernel_ms(lambda: kern[key](one)):.4f} ms (eager loop "
-                      f"{cuda_ms(lambda: kern[key](one), 50):.4f}) bound {max(b1, o1):.5f} ms")
+            elif emit == 65536 and B == 1:
+                r.update(b1_ms=k_ms, b1_eager_ms=e_ms, b1_plain_ms=p_ms,
+                         b1_bound_ms=max(bytes_ms, ops_ms))
+        print(f"kernels: emit={emit} B={B} ({what}): all {len(plain)} operand sets equal the "
+              f"plain versions exactly")
+    del tiers, seen
+    encoders.clear()
+    torch.cuda.empty_cache()
 
     # Adversarial operands: exact equality with the plain versions.
     for E, B, seed in kernel_cases.PARSE_CASES:
@@ -514,7 +551,6 @@ def main() -> int:
 
     from deflate_rs_tpu_torch.models.deflate import compress_stream
     from deflate_rs_tpu_torch.ops import checksum
-    from deflate_rs_tpu_torch.parallel import corpus
     from deflate_rs_tpu_torch.write import DeflateEncoder, GzEncoder, ZlibEncoder
 
     wide_opts = dataclasses.replace(O.default(), chain_scale=WIDE_EMIT // 65536)
@@ -530,13 +566,7 @@ def main() -> int:
                      ("lengths_by_rank_7", "lengths_by_rank_7"),
                      ("quarter_hist_nq8", "quarter_histograms")):
         args = seen_wide[rec]
-        got, want = kern[key](args), plain[key](args)
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        torch.cuda.synchronize()
-        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-                  for g, w in zip(got, want))
-        del want
+        got, err = compare(key, args)
         k_ms = kernel_ms(lambda: kern[key](args))
         p_ms = cuda_ms(lambda: plain[key](args), 2)
         bytes_ms, ops_ms = bound_of(key, args, got)
@@ -617,25 +647,23 @@ def main() -> int:
         walls.append(wall_of(lambda: compress_stream(mix, default, pipelined=False,
                                                    device="cuda"))[1])
     nw_old = ChunkEncoder(default, 65536).num_words
-    batches = -(-len(mix) // (65536 * BATCH))
-    old_fetch = (BATCH * nw_old * 8 + BATCH * 3 * 8)
-    print(f"corpus: chunk-batch engine (pipelined=False, {BATCH} chunks a batch): "
+    old_fetch = BATCH_CHUNKS * nw_old * 8 + BATCH_CHUNKS * 3 * 8
+    print(f"corpus: chunk-batch engine (pipelined=False, {BATCH_CHUNKS} chunks a batch): "
           f"{[round(mb / w, 2) for w in walls]} MB/s; fetches {old_fetch} B a batch "
-          f"({batches} batches)")
+          f"({-(-len(mix) // (65536 * BATCH_CHUNKS))} batches)")
     corpus_rates = {}
     for bs in (16, 32, 64, 128):
         for qd in (1, 3):
             corpus.compress_corpus(mix, batch_size=bs, queue_depth=qd, device="cuda")  # warm
             rates = []
             for _ in range(3):
-                corpus.reset_fetch_stats()
                 cuda.reset_launches()
                 res, wall = wall_of(lambda: corpus.compress_corpus(
                     mix, batch_size=bs, queue_depth=qd, device="cuda"))
                 if res.deflate != old.deflate:
                     raise SystemExit(f"corpus: bytes changed at batch_size={bs} queue_depth={qd}")
                 rates.append(mb / wall)
-            st_ = dict(corpus.fetch_stats)
+            st_ = res.fetched  # of the last run; every run fetches the same
             corpus_rates[bs, qd] = rates
             launches[f"corpus_{bs}_{qd}"] = {n_: k.launches for n_, k in cuda.KERNELS.items()}
             print(f"corpus: batch_size={bs} queue_depth={qd}: {[round(r, 2) for r in rates]} MB/s; "
@@ -739,8 +767,8 @@ def main() -> int:
     offsets = list(range(0, len(mix), 65536))
     from deflate_rs_tpu_torch.models.deflate import _chunk_buffers
 
-    for b0 in range(0, len(offsets), BATCH):
-        bufs, hist, ns, last = _chunk_buffers(mix, offsets[b0 : b0 + BATCH], 65536)
+    for b0 in range(0, len(offsets), kb):
+        bufs, hist, ns, last = _chunk_buffers(mix, offsets[b0 : b0 + kb], 65536)
         with torch.no_grad():
             out = enc_cs(torch.from_numpy(bufs).to(dev), torch.from_numpy(hist),
                          torch.from_numpy(ns), torch.from_numpy(last))
@@ -774,7 +802,8 @@ def main() -> int:
     rows = []
     for name, (src, rep, checked, timed) in sources.items():
         # A batch of Default calls every key of ``timed`` once: the sums are
-        # the kernel's cost per batch of 32 chunks.
+        # the kernel's cost per batch of ``kb`` chunks (``batch``), the shape
+        # of the main path's launches, and per single chunk (``b1_*``).
         bytes_ms = sum(results[k]["bytes_ms"] for k in timed)
         ops_ms = sum(results[k]["ops_ms"] for k in timed)
         lib = [results[k]["library_ms"] for k in timed]
@@ -786,6 +815,12 @@ def main() -> int:
             "launches_corpus": launches["corpus"][name],
             "launches_streaming": launches["streaming"][name],
             "launches_single_chunk": launches["single_chunk"][name],
+            "batch": kb,
+            "b1_ms": sum(results[k]["b1_ms"] for k in timed),
+            "b1_eager_ms": sum(results[k]["b1_eager_ms"] for k in timed),
+            "b1_plain_ms": sum(results[k]["b1_plain_ms"] for k in timed),
+            "b1_bound_ms": sum(results[k]["b1_bound_ms"] for k in timed),
+            "wide_batch": WIDE_BATCH,
             "wide_ms": sum(wide[k]["ms"] for k in timed),
             "wide_bound_ms": sum(wide[k]["bound_ms"] for k in timed),
             "max_abs_err": max(results[k]["max_abs_err"] for k in checked),
@@ -803,8 +838,10 @@ def main() -> int:
           "Default run (the main path; above four chunks it is the corpus engine), of the timed "
           "high run, of a timed corpus run at the defaults, of the DeflateEncoder over the mix "
           "in 1 MiB writes and of 20 single 64 KiB chunks; ms (CUDA-graph replay), eager_ms, "
-          "plain_ms, bound_ms at the 64 KiB tier on Default's inputs at 32 chunks; wide_ms and "
-          "wide_bound_ms at 8 chunks of 262,144 bytes")
+          f"plain_ms, bound_ms, library_ms at the 64 KiB tier on Default's inputs at {kb} chunks, the "
+          "batch of the one-shot and corpus runs; b1_* the same at one chunk, the batch of the "
+          f"single-chunk run; wide_ms and wide_bound_ms at {WIDE_BATCH} chunks of {WIDE_EMIT} "
+          "bytes; max_abs_err over every batch and tier checked")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -50,10 +50,9 @@ class StreamResult:
 
 
 @functools.lru_cache(maxsize=64)
-def get_chunk_encoder(options: CompressionOptions, emit_size: int, device: str,
-                      with_checksums: bool = False) -> ChunkEncoder:
+def get_chunk_encoder(options: CompressionOptions, emit_size: int, device: str) -> ChunkEncoder:
     """The encoder module for one configuration, on ``device``."""
-    return ChunkEncoder(options, emit_size, with_checksums=with_checksums).to(device)
+    return ChunkEncoder(options, emit_size).to(device)
 
 
 def _chunk_buffers(data: bytes, offsets: list, emit: int) -> tuple:

@@ -52,22 +52,29 @@ from ..runtime import native
 # Chunks per device call and batches in flight, from chip_smoke.py's runs over
 # its 16 MiB mix on an NVIDIA H100 80GB HBM3 (700.00 W), PERF.md section 6:
 # the host's launches bound a run, their number falls with the batches, and
-# 64 chunks a batch ran at 55-59 MB/s against 26-43 at 32 and 16-20 at 16.
-# Queue depths 1 and 3 read alike at every batch size, so the depth is the
-# one that pins the least staging memory.
+# 64 chunks a batch ran at 50-61 MB/s against 33-52 at 32 and 15-26 at 16.
+# Queue depths 1 and 3 read alike at every batch size (a deeper queue is
+# unproven there), so the depth is the one that pins the least staging memory.
 BATCH_SIZE = 64
 QUEUE_DEPTH = 1
 
 CHUNK_GRANULE = 256
 MAX_CHUNK_SIZE = 262_144
 
-fetch_stats = {"batches": 0, "meta_bytes": 0, "words_bytes": 0}
-"""Bytes fetched from the device since the last :func:`reset_fetch_stats`."""
+# Pipelines kept between calls, over all configurations together: each pins
+# ``queue_depth + 1`` staging and result buffers of a whole batch.
+POOL_MAX = 4
 
 
-def reset_fetch_stats() -> None:
-    for k in fetch_stats:
-        fetch_stats[k] = 0
+class CorpusResult(StreamResult):
+    """A stream, its checksums, and what its run fetched from the device:
+    ``fetched`` counts the batches and the bytes of their meta and words."""
+
+    __slots__ = ("fetched",)
+
+    def __init__(self, deflate: bytes, adler: int, crc32: int, isize: int, fetched: dict):
+        super().__init__(deflate, adler, crc32, isize)
+        self.fetched = fetched
 
 
 def check_chunk_size(E: int) -> None:
@@ -181,9 +188,11 @@ class BatchPipeline:
     def start(self, history: bytes = b"", tail: torch.Tensor | None = None) -> None:
         """Begin a run of batches whose previous bytes are ``history``, or
         whose history is ``tail``, the device-resident ``self.tail`` that an
-        earlier run over the same stream of input left behind."""
+        earlier run over the same stream of input left behind.  ``self.fetched``
+        counts the run's batches and the bytes fetched for them."""
         if self.queue:
             raise RuntimeError("a batch is still in flight")
+        self.fetched = {"batches": 0, "meta_bytes": 0, "words_bytes": 0}
         self.tail = history_tail(history, self.device) if tail is None else tail
 
     def submit(self, payload: np.ndarray, hist, ns, lasts) -> None:
@@ -247,24 +256,25 @@ class BatchPipeline:
             else:
                 words = slot.words_d.reshape(-1)[:need].numpy()
         slot.meta_d = slot.words_d = None
-        fetch_stats["batches"] += 1
-        fetch_stats["meta_bytes"] += meta.nbytes
-        fetch_stats["words_bytes"] += words.nbytes
+        self.fetched["batches"] += 1
+        self.fetched["meta_bytes"] += meta.nbytes
+        self.fetched["words_bytes"] += words.nbytes
         words = words.view(np.uint8)
         return meta, (words if self.compact else words.reshape(B, -1)), used
 
 
-_pipelines: dict = {}
+_pipelines: list = []  # (key, pipeline) not in use, oldest first
 _pipelines_lock = threading.Lock()
 
 
 @contextlib.contextmanager
 def borrow_pipeline(*key):
     """A pipeline of this configuration for one call: pinned buffers and
-    streams are kept between calls, and two threads never share one."""
+    streams are kept between calls, at most ``POOL_MAX`` pipelines in all,
+    and two threads never share one."""
     with _pipelines_lock:
-        free = _pipelines.setdefault(key, [])
-        pipe = free.pop() if free else None
+        held = [i for i, (k, _) in enumerate(_pipelines) if k == key]
+        pipe = _pipelines.pop(held[-1])[1] if held else None
     if pipe is None:
         options, E, device, batch_size, queue_depth, compact = key
         pipe = BatchPipeline(options, E, device, batch_size=batch_size,
@@ -273,8 +283,8 @@ def borrow_pipeline(*key):
     # Reached only when the caller's block ended without an exception: a
     # pipeline that may still have batches in flight is dropped, not reused.
     with _pipelines_lock:
-        if len(free) < 2:
-            free.append(pipe)
+        _pipelines.append((key, pipe))
+        del _pipelines[:-POOL_MAX]
 
 
 def compress_corpus(
@@ -286,7 +296,7 @@ def compress_corpus(
     queue_depth: int = QUEUE_DEPTH,
     chunk_size: int | None = None,
     device="cuda",
-) -> StreamResult:
+) -> CorpusResult:
     """Compress ``data`` as one DEFLATE stream using batched device encodes.
 
     ``packed`` bit-splices blocks marker-free on the host (identical output
@@ -356,12 +366,14 @@ def compress_corpus(
                 drain_one(pipe)
         while inflight:
             drain_one(pipe)
+        fetched = pipe.fetched
 
-    return StreamResult(
+    return CorpusResult(
         deflate=asm.take_aligned() if packed else b"".join(pieces),
         adler=native.adler32(data),
         crc32=native.crc32(data),
         isize=n % (1 << 32),
+        fetched=fetched,
     )
 
 

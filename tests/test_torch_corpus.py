@@ -91,12 +91,11 @@ def test_corpus_empty_and_small(data):
 @pytest.mark.parametrize("name,batch_size", [("all_stored", 3), ("dense", 4), ("mixed_tail", 4)])
 def test_corpus_compaction_paths(name, batch_size):
     data = _inputs(name)
-    tcorpus.reset_fetch_stats()
     res = tcorpus.compress_corpus(data, batch_size=batch_size, **CPU)
     assert zlib.decompress(res.deflate, wbits=-15) == data
     assert res.crc32 == zlib.crc32(data) and res.adler == zlib.adler32(data)
     assert res.deflate == _jax_stream(name, batch_size)
-    fetched = tcorpus.fetch_stats["words_bytes"]
+    fetched = res.fetched["words_bytes"]
     if name == "all_stored":
         assert fetched == 0
     if name == "dense":
