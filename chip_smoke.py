@@ -66,6 +66,24 @@ Phases (each prints a line; any failure exits non-zero):
    ``finish()``; every kernel's launch counter must move at B = 1.
 8. checksums: ``ChunkEncoder(with_checksums=True)`` partials, combined over
    the mix, equal ``zlib.adler32`` and ``zlib.crc32``.
+9. decode: ``ops.inflate_device.inflate_device`` on the card, no CPU
+   fallback, on the port's CUDA streams of pg11 at every preset (Default,
+   fast, high, rle, huffman_only, turbo, ForceFixed, ForceStored) and of the
+   mix's first 1 MiB at Default (a bit window that covers one chunk's block):
+   each gives the input back, as do the host ``inflate``, ``inflate_zlib``
+   and ``inflate_gzip``.  Prints ms per block (the host clock around each
+   block's decode, synchronised; median and spread, per block type), the
+   dynamic header parse's ms and MB/s of output.  Malformed streams raise
+   ``ValueError`` and a decode after them still works (no device-side
+   assert).  No kernel may launch while decoding: the path has none.
+10. sharded: ``parallel.sharded.make_sharded_encoder`` over NCCL at world
+   size 1 in this process (rendezvous through a file): on the mix, packed
+   bytes equal the one-shot bytes, byte-aligned bytes (``assemble_host`` and
+   ``assemble_local``) equal ``compress_corpus(packed=False)``'s, the
+   checksum partials combine to zlib's; MB/s of three warm runs (step plus
+   packed splice) beside three of the corpus engine; every kernel's launch
+   counter must move during a timed run.  Then
+   ``tools.dryrun_multichip.dryrun_multichip`` spawns one rank a card.
 
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
@@ -314,6 +332,191 @@ def timed_run(dt, cuda, data: bytes, opts, label: str, skip: tuple = ()) -> dict
     if missing:
         raise SystemExit(f"{label}: kernels not launched on its path: {missing}")
     return launches
+
+
+def _cap(n: int) -> int:
+    return max(4096, (n + 4095) & ~4095)
+
+
+def decode_phase(dt, cuda, pg11: bytes, head: bytes, presets: dict) -> dict:
+    """The device inflate validator on the card, and the host decoders, on the
+    port's CUDA streams; ms per block and MB/s.  Returns the kernels'
+    launches during the decodes (none is on this path)."""
+    import statistics
+
+    import torch
+
+    from deflate_rs_tpu_torch.ops import inflate_device as idev
+
+    blocks, headers = [], []  # (btype, ms) per block; ms per dynamic header
+    decode, parse = idev.BlockDecoder.decode, idev._parse_dynamic_header
+
+    def timed_decode(self, bitpos, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = decode(self, bitpos, *a)
+        torch.cuda.synchronize()
+        blocks.append((int(self.host_bits[bitpos + 1]) | int(self.host_bits[bitpos + 2]) << 1,
+                       1e3 * (time.perf_counter() - t0)))
+        return res
+
+    def timed_parse(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = parse(*a)
+        torch.cuda.synchronize()
+        headers.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    # Every stream is encoded first: the launch counters then see the decodes alone.
+    streams = {}
+    for name, o in {"Default": dt.CompressionOptions.default(), **presets}.items():
+        streams[name] = (dt.deflate_bytes_conf(pg11, o, device="cuda"),
+                         dt.deflate_bytes_zlib_conf(pg11, o, device="cuda"),
+                         dt.deflate_bytes_gzip_conf(pg11, dt.GzBuilder(), o, device="cuda"))
+    mix_raw = dt.deflate_bytes(head, device="cuda")
+    bad = {"all ones": b"\xff" * 64, "truncated": streams["Default"][0][:-40]}
+    after = dt.deflate_bytes(b"after the malformed streams", device="cuda")
+    window = 9 * 65536 + 4096  # covers one chunk's block: at most 64 KiB of output
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    idev.BlockDecoder.decode, idev._parse_dynamic_header = timed_decode, timed_parse
+    try:
+        for name, (raw, z, g) in streams.items():
+            blocks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = idev.inflate_device(raw, _cap(len(pg11)), device="cuda")
+            wall = time.perf_counter() - t0
+            if got != pg11:
+                raise SystemExit(f"decode: inflate_device does not give pg11 back ({name})")
+            if not dt.inflate(raw) == dt.inflate_zlib(z) == dt.inflate_gzip(g) == pg11:
+                raise SystemExit(f"decode: the host inflate does not give pg11 back ({name})")
+            print(f"decode: pg11 at {name}: {len(raw)} B, {len(blocks)} blocks (types "
+                  f"{sorted({b for b, _ in blocks})}) decode on the card in {wall * 1e3:.1f} ms "
+                  f"= {len(pg11) / 1e6 / wall:.3f} MB/s; ms per block median "
+                  f"{statistics.median(ms for _, ms in blocks):.2f}; host inflate, inflate_zlib, "
+                  f"inflate_gzip agree")
+        idev.inflate_device(mix_raw, _cap(len(head)), block_window=window, device="cuda")  # warm
+        blocks.clear()
+        headers.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = idev.inflate_device(mix_raw, _cap(len(head)), block_window=window, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        idev.BlockDecoder.decode, idev._parse_dynamic_header = decode, parse
+    if got != head or dt.inflate(mix_raw) != head:
+        raise SystemExit("decode: mix[:1 MiB] does not decode to the input")
+    by_type = {}
+    for bt, ms in blocks:
+        by_type.setdefault(bt, []).append(ms)
+    print(f"decode: mix[:1 MiB] at Default ({len(mix_raw)} B, window {window} bits): "
+          f"{len(blocks)} blocks in {wall:.3f} s = {len(head) / 1e6 / wall:.3f} MB/s of output; "
+          f"ms per block {spread([ms for _, ms in blocks])}; " + "; ".join(
+              f"btype {bt}: {len(v)} blocks, {spread(v)}" for bt, v in sorted(by_type.items()))
+          + f"; dynamic header parse, ms: {spread(headers)}")
+    # Malformed streams raise ValueError, with no device-side assert.
+    for name, stream in bad.items():
+        try:
+            idev.inflate_device(stream, _cap(len(pg11)), device="cuda")
+        except ValueError as e:
+            print(f"decode: malformed stream ({name}) raises ValueError: {e}")
+        else:
+            raise SystemExit(f"decode: malformed stream ({name}) did not raise")
+    torch.cuda.synchronize()  # a device-side assert would surface here
+    if idev.inflate_device(after, 4096, device="cuda") != b"after the malformed streams":
+        raise SystemExit("decode: the context did not survive the malformed streams")
+    counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+    if any(counts.values()):
+        raise SystemExit(f"decode: a kernel was launched while decoding: {counts}")
+    print(f"decode: launches of the five kernels while decoding: {counts} (none on this path)")
+    return counts
+
+
+def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes,
+                  wall_of) -> dict:
+    """The sharded encoder over NCCL at world size 1 (in this process, so the
+    launch counters see it) on the mix, then the dry run over every card.
+    Returns the kernels' launches during one timed sharded run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deflate_rs_tpu_torch.ops import checksum
+    from deflate_rs_tpu_torch.parallel import corpus
+    from deflate_rs_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from deflate_rs_tpu_torch.parallel.sharded import (assemble_host, assemble_local,
+                                                       make_sharded_encoder)
+    from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch, dryrun_multichip
+
+    emit = 65536
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on loopback
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    init_distributed(f"file://{tmp}/rendezvous", 1, 0, device="cuda")
+    try:
+        mesh = make_mesh(device="cuda")
+        step = make_sharded_encoder(mesh, dt.CompressionOptions.default(), emit)
+        bufs, hist, ns, lasts = build_batch(mix, emit)
+        payloads = [mix[i * emit : i * emit + int(ns[i])] for i in range(len(ns))]
+
+        def run():
+            shard = step(bufs, hist, ns, lasts)
+            return shard, assemble_host(shard, packed=True, payloads=payloads, is_lasts=lasts)
+
+        shard, packed = run()  # warm
+        aligned = assemble_host(shard, payloads=payloads, is_lasts=lasts)
+        local, offset = assemble_local(shard, payloads=payloads, is_lasts=lasts, mesh=mesh)
+        if packed != one_shot:
+            raise SystemExit("sharded: packed bytes differ from the one-shot bytes on the mix")
+        if aligned != aligned_one_shot or (local, offset) != (aligned, 0):
+            raise SystemExit(f"sharded: byte-aligned bytes ({len(aligned)} B; assemble_local "
+                             f"{len(local)} B at {offset}) differ from the one-shot "
+                             f"compress_stream(packed=False) bytes ({len(aligned_one_shot)} B)")
+        state, raw = checksum.ADLER_INIT, 0
+        for i in range(len(ns)):
+            state = checksum.adler32_combine(state, int(shard["s1"][i]), int(shard["s2"][i]),
+                                             int(ns[i]))
+            raw = checksum.crc32_combine_raw(raw, int(shard["crc_raw"][i]), int(ns[i]))
+        if (checksum.adler32_value(state), checksum.crc32_from_raw(raw, len(mix))) != (
+                zlib.adler32(mix), zlib.crc32(mix)):
+            raise SystemExit("sharded: checksum partials do not combine to zlib's")
+        mb = len(mix) / 1e6
+        rates, counts = [], None
+        for _ in range(3):
+            cuda.reset_launches()
+            (_, out), wall = wall_of(run)
+            counts = counts or {n_: k.launches for n_, k in cuda.KERNELS.items()}
+            if out != one_shot:
+                raise SystemExit("sharded: bytes changed between runs")
+            rates.append(mb / wall)
+        corpus_rates = [mb / wall_of(lambda: corpus.compress_corpus(mix, device="cuda"))[1]
+                        for _ in range(3)]
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            raise SystemExit(f"sharded: kernels not launched on its path: {missing}")
+        fetched = shard["cw"].nbytes + 6 * 8 * len(ns)
+        print(f"sharded: world size {mesh.size} over {dist.get_backend()}, {len(ns)} chunks of {emit} B on "
+              f"{mesh.device}: packed == one-shot bytes, byte-aligned (assemble_host and "
+              f"assemble_local) == compress_stream(packed=False) bytes, checksum partials == "
+              f"zlib's; step + packed splice {[round(r, 2) for r in rates]} MB/s (warm); corpus "
+              f"engine in this process {[round(r, 2) for r in corpus_rates]} MB/s; fetched "
+              f"{fetched} B ({int(np.sum(shard['btype'] == 0))} stored chunks fetch no words); "
+              f"launches of one run {counts}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    s = dryrun_multichip(n, emit=emit, device="cuda")
+    print(f"sharded: dryrun_multichip({n}) in {time.perf_counter() - t0:.1f} s: "
+          f"{s['chunks']} chunks, {s['input_bytes']} -> {s['aligned_bytes']} B (packed "
+          f"{s['packed_bytes']}), block types {s['block_types']}; the file the ranks wrote "
+          "round-trips and equals the one-shot bytes; more than one card is not measured here")
+    return counts
 
 
 def main() -> int:
@@ -783,6 +986,14 @@ def main() -> int:
     print(f"checksums: device partials of {len(offsets)} chunks combine to zlib.adler32 and "
           f"zlib.crc32 of the mix; phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # ------------------------------------------------------------- decode
+    launches["decode"] = decode_phase(dt, cuda, pg11, head, presets)
+    print(f"decode: phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------------------------------------------ sharded
+    launches["sharded"] = sharded_phase(dt, cuda, mix, new.deflate, unpacked, wall_of)
+    print(f"sharded: phase done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {
         "lr_measure": ("deflate_rs_tpu_torch/csrc/lr_measure.cu", "deflate_rs_tpu/ops/lr_kernel.py:84",
                        ["lr_measure", "lr_measure_s32"], ["lr_measure"]),
@@ -815,6 +1026,8 @@ def main() -> int:
             "launches_corpus": launches["corpus"][name],
             "launches_streaming": launches["streaming"][name],
             "launches_single_chunk": launches["single_chunk"][name],
+            "launches_sharded": launches["sharded"][name],
+            "launches_decode": launches["decode"][name],
             "batch": kb,
             "b1_ms": sum(results[k]["b1_ms"] for k in timed),
             "b1_eager_ms": sum(results[k]["b1_eager_ms"] for k in timed),
@@ -837,7 +1050,9 @@ def main() -> int:
     print(f"done in {time.perf_counter() - t_start:.1f} s; kernels row: launches of the timed "
           "Default run (the main path; above four chunks it is the corpus engine), of the timed "
           "high run, of a timed corpus run at the defaults, of the DeflateEncoder over the mix "
-          "in 1 MiB writes and of 20 single 64 KiB chunks; ms (CUDA-graph replay), eager_ms, "
+          "in 1 MiB writes, of 20 single 64 KiB chunks, of a timed sharded run (world size 1) "
+          "and of the decode phase (none: no kernel is on that path); ms (CUDA-graph replay), "
+          "eager_ms, "
           f"plain_ms, bound_ms, library_ms at the 64 KiB tier on Default's inputs at {kb} chunks, the "
           "batch of the one-shot and corpus runs; b1_* the same at one chunk, the batch of the "
           f"single-chunk run; wide_ms and wide_bound_ms at {WIDE_BATCH} chunks of {WIDE_EMIT} "

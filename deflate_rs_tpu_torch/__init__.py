@@ -10,9 +10,12 @@ huffman_only, turbo) and both force modes; the streaming encoders
 (``write.DeflateEncoder``, ``write.ZlibEncoder``, ``write.gzip.GzEncoder``);
 the batched corpus engine (``parallel.corpus.compress_corpus`` and its zlib
 and gzip forms, chunk sizes up to 256 KiB) with its used-prefix compaction;
-and the device checksums (``ops.checksum``).  Not yet: the decoders, the
-multi-GPU path, the bench.  Every entry takes ``device`` (default
-``"cuda"``).
+the device checksums (``ops.checksum``); both decoders, the host oracle
+(``inflate``, ``inflate_zlib``, ``inflate_gzip``) and the device validator
+(``ops.inflate_device.inflate_device``); and the multi-GPU sharded encoder
+on ``torch.distributed`` (``parallel.mesh``, ``parallel.sharded``).  Not
+yet: the bench.  Every entry that touches a device takes ``device``
+(default ``"cuda"``).
 """
 
 from .compression_options import (
@@ -31,6 +34,7 @@ from .models.deflate import (
     deflate_bytes_zlib_conf,
 )
 from .models.gzip_header import GzBuilder
+from .models.inflate import inflate, inflate_gzip, inflate_zlib
 from . import write
 
 __all__ = [
@@ -46,5 +50,8 @@ __all__ = [
     "deflate_bytes_zlib_conf",
     "deflate_bytes_gzip",
     "deflate_bytes_gzip_conf",
+    "inflate",
+    "inflate_zlib",
+    "inflate_gzip",
     "write",
 ]

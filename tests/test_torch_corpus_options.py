@@ -4,8 +4,6 @@ chunk-size rule at the entry, and the pg11 size pin.  Tolerance: exact
 equality.  The engine's main cases are in ``tests/test_torch_corpus.py``.
 """
 
-import functools
-import gzip
 import os
 import zlib
 
@@ -21,42 +19,11 @@ torch.set_num_threads(1)
 import deflate_rs_tpu as dj  # noqa: E402
 import deflate_rs_tpu_torch as dt  # noqa: E402
 from deflate_rs_tpu.parallel import corpus as jcorpus  # noqa: E402
-from deflate_rs_tpu_torch.models.deflate import compress_stream  # noqa: E402
 from deflate_rs_tpu_torch.parallel import corpus as tcorpus  # noqa: E402
+from torch_corpus_data import inputs as _inputs, jax_stream as _jax_stream  # noqa: E402
+from torch_corpus_data import pg11 as _pg11  # noqa: E402
 
-DATA = os.path.join(os.path.dirname(__file__), "data")
 CPU = {"device": "cpu"}
-
-
-@functools.lru_cache(maxsize=None)
-def _pg11():
-    with open(os.path.join(DATA, "pg11.txt"), "rb") as f:
-        return f.read()
-
-
-@functools.lru_cache(maxsize=None)
-def _inputs(name: str) -> bytes:
-    pg = _pg11()
-    if name == "mix":  # binary mixed in, so several block types share a batch
-        rng = np.random.default_rng(0)
-        return pg + rng.integers(0, 256, 80_000, dtype=np.uint8).tobytes() + pg[:50_000]
-    rng = np.random.default_rng(7)
-    rand = rng.integers(0, 256, 3 * 65536, dtype=np.uint8).tobytes()
-    if name == "all_stored":  # no word of the compacted buffer is used
-        return rand
-    if name == "dense":  # ~6 bits a byte: more than half of the buffer is used
-        return rng.integers(0, 64, 4 * 65536, dtype=np.uint8).tobytes()
-    if name == "mixed_tail":  # stored, text and runs in one batch, odd tail
-        return rand[:65536] + pg[:100_000] + b"\x00" * 70_000 + rand[:12_345]
-    if name == "repeated_text":
-        return (pg * 4)[:600_000]
-    raise ValueError(name)
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_stream(name: str, batch_size: int, chunk_size: int = 65536, packed: bool = True) -> bytes:
-    return jcorpus.compress_corpus(_inputs(name), batch_size=batch_size, chunk_size=chunk_size,
-                                   packed=packed).deflate
 
 
 @pytest.mark.parametrize("chunk_size", [131_072, 16_384])

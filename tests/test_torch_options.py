@@ -79,6 +79,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys; before = set(sys.modules); import deflate_rs_tpu_torch; "
         "import deflate_rs_tpu_torch.ops.chunk_encode; "
+        "import deflate_rs_tpu_torch.ops.inflate_device, deflate_rs_tpu_torch.models.inflate; "
+        "import deflate_rs_tpu_torch.parallel.mesh, deflate_rs_tpu_torch.parallel.sharded; "
+        "import deflate_rs_tpu_torch.tools.dryrun_multichip; "
         "new = [m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib')]; "
         "assert not new, new; assert 'deflate_rs_tpu' not in sys.modules"
     )
