@@ -20,7 +20,10 @@ Phases (each prints a line; any failure exits non-zero):
    ``plain_ms`` and ``bound_ms`` are at that batch), one chunk alone (B = 1,
    the single-chunk streaming path: every kernel timed again, ``b1_ms``),
    15 and 16 chunks (a 1 MiB write to a streaming encoder) and 32 (the
-   chunk-batch engine, ``pipelined=False``).  In the 4 KiB tier: 32 streams
+   chunk-batch engine, ``pipelined=False``).  The sharded step's batches, on
+   the operands of its own encoder (Default): every chunk of the mix at once
+   (world size 1, timed, ``sharded_*``) and one rank of the dry run (four
+   chunks: text, stored, runs, periodic).  In the 4 KiB tier: 32 streams
    of 4 KiB, timed, and one alone, the only batch that tier is launched at.
    Then the adversarial operands of
    ``deflate_rs_tpu_torch/utils/kernel_cases.py`` go through ``parse_scan``,
@@ -71,9 +74,11 @@ Phases (each prints a line; any failure exits non-zero):
    fast, high, rle, huffman_only, turbo, ForceFixed, ForceStored) and of the
    mix's first 1 MiB at Default (a bit window that covers one chunk's block):
    each gives the input back, as do the host ``inflate``, ``inflate_zlib``
-   and ``inflate_gzip``.  Prints ms per block (the host clock around each
-   block's decode, synchronised; median and spread, per block type), the
-   dynamic header parse's ms and MB/s of output.  Malformed streams raise
+   and ``inflate_gzip``.  Prints MB/s of output (the host clock around each
+   uninstrumented decode), then ms per block and per dynamic header parse
+   (CUDA events, read after the stream; median and spread, per block type),
+   and the top-level operations and device kernels of one dynamic block and
+   of its header under ``torch.profiler``.  Malformed streams raise
    ``ValueError`` and a decode after them still works (no device-side
    assert).  No kernel may launch while decoding: the path has none.
 10. sharded: ``parallel.sharded.make_sharded_encoder`` over NCCL at world
@@ -338,35 +343,34 @@ def _cap(n: int) -> int:
     return max(4096, (n + 4095) & ~4095)
 
 
+def top_level_ops(fn) -> tuple:
+    """(host operations ``fn`` issues at the top level, kernels the card ran
+    for it; None where the profiler traced no device activity) under
+    ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    # Top-level CPU events, less the runtime's own calls (the synchronize).
+    ops = sum(1 for e in events if e.device_type == DeviceType.CPU and e.cpu_parent is None
+              and not e.name.startswith("cuda"))
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    return ops, kernels or None
+
+
 def decode_phase(dt, cuda, pg11: bytes, head: bytes, presets: dict) -> dict:
     """The device inflate validator on the card, and the host decoders, on the
-    port's CUDA streams; ms per block and MB/s.  Returns the kernels'
-    launches during the decodes (none is on this path)."""
+    port's CUDA streams; MB/s, ms per block and the operations of one block.
+    Returns the kernels' launches during the decodes (none is on this path)."""
     import statistics
 
     import torch
 
     from deflate_rs_tpu_torch.ops import inflate_device as idev
-
-    blocks, headers = [], []  # (btype, ms) per block; ms per dynamic header
-    decode, parse = idev.BlockDecoder.decode, idev._parse_dynamic_header
-
-    def timed_decode(self, bitpos, *a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = decode(self, bitpos, *a)
-        torch.cuda.synchronize()
-        blocks.append((int(self.host_bits[bitpos + 1]) | int(self.host_bits[bitpos + 2]) << 1,
-                       1e3 * (time.perf_counter() - t0)))
-        return res
-
-    def timed_parse(*a):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = parse(*a)
-        torch.cuda.synchronize()
-        headers.append(1e3 * (time.perf_counter() - t0))
-        return res
 
     # Every stream is encoded first: the launch counters then see the decodes alone.
     streams = {}
@@ -378,44 +382,99 @@ def decode_phase(dt, cuda, pg11: bytes, head: bytes, presets: dict) -> dict:
     bad = {"all ones": b"\xff" * 64, "truncated": streams["Default"][0][:-40]}
     after = dt.deflate_bytes(b"after the malformed streams", device="cuda")
     window = 9 * 65536 + 4096  # covers one chunk's block: at most 64 KiB of output
-    torch.cuda.synchronize()
-    cuda.reset_launches()
-    idev.BlockDecoder.decode, idev._parse_dynamic_header = timed_decode, timed_parse
-    try:
-        for name, (raw, z, g) in streams.items():
-            blocks.clear()
+    cases = {f"pg11 at {name}": (raw, pg11, 0) for name, (raw, _, _) in streams.items()}
+    cases["mix[:1 MiB] at Default"] = (mix_raw, head, window)
+
+    def walls():
+        """Every case decoded as a user calls it, timed by the host clock."""
+        out = {}
+        for label, (raw, want, w) in cases.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            got = idev.inflate_device(raw, _cap(len(pg11)), device="cuda")
-            wall = time.perf_counter() - t0
-            if got != pg11:
-                raise SystemExit(f"decode: inflate_device does not give pg11 back ({name})")
-            if not dt.inflate(raw) == dt.inflate_zlib(z) == dt.inflate_gzip(g) == pg11:
-                raise SystemExit(f"decode: the host inflate does not give pg11 back ({name})")
-            print(f"decode: pg11 at {name}: {len(raw)} B, {len(blocks)} blocks (types "
-                  f"{sorted({b for b, _ in blocks})}) decode on the card in {wall * 1e3:.1f} ms "
-                  f"= {len(pg11) / 1e6 / wall:.3f} MB/s; ms per block median "
-                  f"{statistics.median(ms for _, ms in blocks):.2f}; host inflate, inflate_zlib, "
-                  f"inflate_gzip agree")
-        idev.inflate_device(mix_raw, _cap(len(head)), block_window=window, device="cuda")  # warm
-        blocks.clear()
-        headers.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = idev.inflate_device(mix_raw, _cap(len(head)), block_window=window, device="cuda")
-        wall = time.perf_counter() - t0
+            got = idev.inflate_device(raw, _cap(len(want)), block_window=w, device="cuda")
+            out[label] = time.perf_counter() - t0
+            if got != want:
+                raise SystemExit(f"decode: inflate_device does not give the input back ({label})")
+        return out
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    walls()  # warm
+    wall = walls()
+    for name, (raw, z, g) in streams.items():
+        if not dt.inflate(raw) == dt.inflate_zlib(z) == dt.inflate_gzip(g) == pg11:
+            raise SystemExit(f"decode: the host inflate does not give pg11 back ({name})")
+    if dt.inflate(mix_raw) != head:
+        raise SystemExit("decode: the host inflate does not give mix[:1 MiB] back")
+
+    # Per block: CUDA events around each block's launches and each dynamic
+    # header's, read once the stream is decoded, so the timing adds no wait.
+    # A block's time runs from its first operation to its last on the card,
+    # gaps while the host launches included.
+    blocks, headers = [], []  # (btype, start, end) per block; (start, end) per header
+    decode, parse = idev.BlockDecoder.decode, idev._parse_dynamic_header
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_decode(self, bitpos, *a):
+        t0 = event()
+        res = decode(self, bitpos, *a)
+        blocks.append((int(self.host_bits[bitpos + 1]) | int(self.host_bits[bitpos + 2]) << 1,
+                       t0, event()))
+        return res
+
+    def timed_parse(*a):
+        t0 = event()
+        res = parse(*a)
+        headers.append((t0, event()))
+        return res
+
+    per_block = {}
+    idev.BlockDecoder.decode, idev._parse_dynamic_header = timed_decode, timed_parse
+    try:
+        for label, (raw, want, w) in cases.items():
+            blocks.clear()
+            headers.clear()
+            idev.inflate_device(raw, _cap(len(want)), block_window=w, device="cuda")
+            torch.cuda.synchronize()
+            per_block[label] = ([(bt, t0.elapsed_time(t1)) for bt, t0, t1 in blocks],
+                                [t0.elapsed_time(t1) for t0, t1 in headers])
     finally:
         idev.BlockDecoder.decode, idev._parse_dynamic_header = decode, parse
-    if got != head or dt.inflate(mix_raw) != head:
-        raise SystemExit("decode: mix[:1 MiB] does not decode to the input")
-    by_type = {}
-    for bt, ms in blocks:
-        by_type.setdefault(bt, []).append(ms)
-    print(f"decode: mix[:1 MiB] at Default ({len(mix_raw)} B, window {window} bits): "
-          f"{len(blocks)} blocks in {wall:.3f} s = {len(head) / 1e6 / wall:.3f} MB/s of output; "
-          f"ms per block {spread([ms for _, ms in blocks])}; " + "; ".join(
-              f"btype {bt}: {len(v)} blocks, {spread(v)}" for bt, v in sorted(by_type.items()))
-          + f"; dynamic header parse, ms: {spread(headers)}")
+    for label, (raw, want, w) in cases.items():
+        ms, hdr = per_block[label]
+        by_type = {}
+        for bt, m in ms:
+            by_type.setdefault(bt, []).append(m)
+        print(f"decode: {label}: {len(raw)} B, {len(ms)} blocks, window "
+              f"{w or 'the default'} bits: {wall[label] * 1e3:.1f} ms = "
+              f"{len(want) / 1e6 / wall[label]:.3f} MB/s of output (host clock, no "
+              f"instrumentation); ms per block (CUDA events) " + "; ".join(
+                  f"btype {bt}: {len(v)} blocks, {spread(v)}" for bt, v in sorted(by_type.items()))
+              + (f"; dynamic header parse, ms: {spread(hdr)}" if hdr else ""))
+
+    # The operations of one dynamic block, and of its header alone.
+    raw = streams["Default"][0]
+    dec = idev.BlockDecoder(raw, _cap(len(pg11)), window, device="cuda")
+    state = (torch.zeros(dec.OUT, dtype=torch.int64, device=dec.device),
+             torch.arange(dec.OUT, device=dec.device),
+             torch.zeros(dec.OUT, dtype=torch.bool, device=dec.device))
+    meta = dec.decode(0, 0, *state)[3].tolist()  # warm
+    if meta[4] != 2 or not meta[3]:
+        raise SystemExit(f"decode: the first block of pg11 at Default is not a good dynamic "
+                         f"block: {meta}")
+    block_ops, block_kernels = top_level_ops(lambda: dec.decode(0, 0, *state))
+    header_ops, header_kernels = top_level_ops(lambda: idev._parse_dynamic_header(dec.bits, 3))
+    ms = statistics.median(m for _, m in per_block["mix[:1 MiB] at Default"][0])
+    print(f"decode: one dynamic block of pg11 at Default (window {dec.W} bits), under "
+          f"torch.profiler on the card: {block_ops} top-level operations, {block_kernels} "
+          f"kernels (None: no device trace); its header parse {header_ops} operations, "
+          f"{header_kernels} kernels; the mix's median dynamic block "
+          f"{ms:.3f} ms = {1e3 * ms / block_ops:.2f} us per operation")
+
     # Malformed streams raise ValueError, with no device-side assert.
     for name, stream in bad.items():
         try:
@@ -533,6 +592,7 @@ def main() -> int:
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
     from deflate_rs_tpu_torch.parallel import corpus
     from deflate_rs_tpu_torch.runtime import cuda
+    from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch, dryrun_data
     from deflate_rs_tpu_torch.utils import kernel_cases
 
     dev = torch.device("cuda", 0)
@@ -609,16 +669,17 @@ def main() -> int:
     encoders = {}
     kb = corpus.BATCH_SIZE
 
-    def harvest_rows(operands, emit, lo, hi):
-        """What each preset's encoder hands the kernels for rows lo..hi of
-        ``operands`` (one batch of the emit tier)."""
+    def harvest_rows(operands, emit, lo, hi, names, kw):
+        """What the encoders of the presets ``names`` (built with ``kw``)
+        hand the kernels for rows lo..hi of ``operands``."""
         seen = {}
-        for name, o in harvest_opts.items():
-            if (name, emit) not in encoders:
-                encoders[name, emit] = ChunkEncoder(o, emit).to(dev)
+        for name in names:
+            ekey = (name, emit, tuple(sorted(kw.items())))
+            if ekey not in encoders:
+                encoders[ekey] = ChunkEncoder(harvest_opts[name], emit, **kw).to(dev)
             bufs, hist, ns, last = (torch.from_numpy(a[lo:hi]) for a in operands)
             with torch.no_grad():
-                seen[name] = harvest(encoders[name, emit], bufs.to(dev), hist, ns, last)
+                seen[name] = harvest(encoders[ekey], bufs.to(dev), hist, ns, last)
         return seen
 
     def compare(key, args):
@@ -631,9 +692,22 @@ def main() -> int:
                   for g, w in zip(got, want))
         return got, err
 
-    # (emit, first row, end row, what launches that batch, timed).  The rows
-    # of a batch smaller than the tier's start at chunk 1, which has its
-    # 32 KiB of history as every chunk of a stream but the first has.
+    # The operand sets: (emit, rows, presets harvested, encoder arguments).
+    # The sharded step (parallel/sharded.py) builds its ChunkEncoder with
+    # checksums and without stored payload fields and runs Default only: at
+    # world size 1 over all of the mix at once, and in the dry run over four
+    # mixed chunks a rank.
+    step_kw = {"with_checksums": True, "stored_payload_fields": False}
+    tiers = {
+        4096: (4096, tier_buffers(mix, 4096, BATCH), tuple(harvest_opts), {}),
+        65536: (65536, tier_buffers(mix, 65536, max(kb, BATCH)), tuple(harvest_opts), {}),
+        "sharded": (65536, build_batch(mix, 65536), ("default",), step_kw),
+        "dryrun": (65536, build_batch(dryrun_data(65536, 4), 65536), ("default",), step_kw),
+    }
+    n_sharded = len(tiers["sharded"][1][2])
+    # (operand set, first row, end row, what launches that batch, timed).
+    # The rows of a batch smaller than the tier's start at chunk 1, which has
+    # its 32 KiB of history as every chunk of a stream but the first has.
     batches = [
         (4096, 0, BATCH, "32 streams of 4 KiB", True),
         (4096, 3, 4, "one 4 KiB stream, the small tier's only batch", False),
@@ -642,12 +716,16 @@ def main() -> int:
         (65536, 1, 16, "a 1 MiB write to a streaming encoder, one byte held back", False),
         (65536, 0, 16, "a 1 MiB write to a streaming encoder", False),
         (65536, 0, BATCH_CHUNKS, "the chunk-batch engine, pipelined=False", False),
+        ("sharded", 0, n_sharded, "the sharded step at world size 1: every chunk of the mix",
+         True),
+        ("dryrun", 0, 4, "one rank of the dry run: text, stored, runs, periodic", False),
     ]
-    tiers = {emit: tier_buffers(mix, emit, max(kb, BATCH)) for emit in (4096, 65536)}
-    for emit, lo, hi, what, timed in batches:
+    for tier, lo, hi, what, timed in batches:
+        emit, operands, names, kw = tiers[tier]
         B = hi - lo
-        seen = harvest_rows(tiers[emit], emit, lo, hi)
-        for key in plain:
+        seen = harvest_rows(operands, emit, lo, hi, names, kw)
+        keys = [key for key in plain if source[key][0] in seen]
+        for key in keys:
             preset, rec = source[key]
             args = seen[preset][rec]
             got, err = compare(key, args)
@@ -672,13 +750,16 @@ def main() -> int:
                   f"kernel {k_ms:.4f} ms (eager loop {e_ms:.4f}) plain {p_ms:.4f} ms "
                   f"bound {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f}, operations "
                   f"{ops_ms:.5f})" + (f" bincount {lib_ms:.4f} ms" if lib_ms is not None else ""))
-            if emit == 65536 and B == kb:
+            if tier == 65536 and B == kb:
                 r.update(ms=k_ms, eager_ms=e_ms, plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                          library_ms=lib_ms)
-            elif emit == 65536 and B == 1:
+            elif tier == 65536 and B == 1:
                 r.update(b1_ms=k_ms, b1_eager_ms=e_ms, b1_plain_ms=p_ms,
                          b1_bound_ms=max(bytes_ms, ops_ms))
-        print(f"kernels: emit={emit} B={B} ({what}): all {len(plain)} operand sets equal the "
+            elif tier == "sharded":
+                r.update(sharded_ms=k_ms, sharded_plain_ms=p_ms,
+                         sharded_bound_ms=max(bytes_ms, ops_ms))
+        print(f"kernels: emit={emit} B={B} ({what}): all {len(keys)} operand sets equal the "
               f"plain versions exactly")
     del tiers, seen
     encoders.clear()
@@ -1033,6 +1114,10 @@ def main() -> int:
             "b1_eager_ms": sum(results[k]["b1_eager_ms"] for k in timed),
             "b1_plain_ms": sum(results[k]["b1_plain_ms"] for k in timed),
             "b1_bound_ms": sum(results[k]["b1_bound_ms"] for k in timed),
+            "sharded_batch": n_sharded,
+            "sharded_ms": sum(results[k]["sharded_ms"] for k in timed),
+            "sharded_plain_ms": sum(results[k]["sharded_plain_ms"] for k in timed),
+            "sharded_bound_ms": sum(results[k]["sharded_bound_ms"] for k in timed),
             "wide_batch": WIDE_BATCH,
             "wide_ms": sum(wide[k]["ms"] for k in timed),
             "wide_bound_ms": sum(wide[k]["bound_ms"] for k in timed),
@@ -1055,8 +1140,9 @@ def main() -> int:
           "eager_ms, "
           f"plain_ms, bound_ms, library_ms at the 64 KiB tier on Default's inputs at {kb} chunks, the "
           "batch of the one-shot and corpus runs; b1_* the same at one chunk, the batch of the "
-          f"single-chunk run; wide_ms and wide_bound_ms at {WIDE_BATCH} chunks of {WIDE_EMIT} "
-          "bytes; max_abs_err over every batch and tier checked")
+          f"single-chunk run; sharded_* the same at {n_sharded} chunks, the sharded step's batch; "
+          f"wide_ms and wide_bound_ms at {WIDE_BATCH} chunks of {WIDE_EMIT} bytes; max_abs_err "
+          "over every batch and tier checked")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -38,10 +38,6 @@ from ..ops.compaction import compact_words_device, used_words_device, used_words
 from ..runtime import native
 from .mesh import Mesh, local_chunk_range
 
-# The assembler's view of the fetch contract (ops/compaction.py, the one
-# definition shared with the device packing).
-host_used_words = used_words_host
-
 
 def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every rank's ``x`` (same shape on each), concatenated in rank order."""
@@ -69,7 +65,7 @@ def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int
       btype, data_bits: block metadata for the host splice
       s1, s2, crc_raw: checksum partials
       compact=True:  cw: uint32, the used words of the shard's chunks, in
-                     row order (``host_used_words`` counts them)
+                     row order (``used_words_host`` counts them)
       compact=False: words: uint32[local_b, NW] whole per-chunk word rows
     """
     encoder = ChunkEncoder(options, emit_size, with_checksums=True,
@@ -93,7 +89,7 @@ def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int
             if compact:
                 words = compact_words_device(
                     out["words"], used_words_device(out["btype"], out["data_bits"]))
-                need = int(host_used_words(shard["btype"], shard["data_bits"]).sum())
+                need = int(used_words_host(shard["btype"], shard["data_bits"]).sum())
                 shard["cw"] = words[:need].cpu().numpy().view(np.uint32)
             else:
                 shard["words"] = out["words"].to(torch.int32).cpu().numpy().view(np.uint32)
@@ -114,7 +110,7 @@ def _splice_compact_shard(asm: BitAssembler, shard: dict, payloads, lasts, B: in
                           packed: bool) -> None:
     """Splice one shard's chunks from its compacted words."""
     btypes, dbits, row0 = shard["btype"], shard["data_bits"], shard["row0"]
-    used = host_used_words(btypes, dbits)
+    used = used_words_host(btypes, dbits)
     woff = np.cumsum(used) - used
     bwords = shard["cw"].view(np.uint8)
     for i in range(btypes.shape[0]):

@@ -56,15 +56,6 @@ def build_batch(data: bytes, emit: int):
     return bufs, hist, ns, lasts
 
 
-def pad_to_multiple(arrs, m: int):
-    """Pad every array's rows with zeros to a multiple of ``m``; returns
-    (padded arrays, the original row count).  A padding row is an empty
-    non-final chunk whose bytes the assembly drops (``n=``)."""
-    B = arrs[0].shape[0]
-    pad = (-B) % m
-    return [np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]) for a in arrs], B
-
-
 def dryrun_data(emit: int, n_chunks: int) -> bytes:
     """The dry run's mixed input: ``n_chunks`` chunks of ``emit`` bytes."""
     rng = np.random.default_rng(0)
@@ -146,8 +137,9 @@ def dryrun_multichip(n: int, *, emit: int = 65536, chunks_per_device: int = 4,
     """Run the dry run over ``n`` ranks and check it; returns a summary.
     Raises ``RuntimeError`` when a check fails."""
     from .. import constants as C
+    from ..ops.compaction import used_words_host
     from ..parallel.corpus import compress_corpus
-    from ..parallel.sharded import assemble_host, host_used_words
+    from ..parallel.sharded import assemble_host
 
     if torch.device(device).type == "cuda":
         if torch.cuda.device_count() < n:
@@ -167,7 +159,7 @@ def dryrun_multichip(n: int, *, emit: int = 65536, chunks_per_device: int = 4,
     finally:
         os.remove(out_path)
     btype = np.concatenate([s["btype"] for s in shards])
-    used = host_used_words(btype, np.concatenate([s["data_bits"] for s in shards]))
+    used = used_words_host(btype, np.concatenate([s["data_bits"] for s in shards]))
     payloads = [data[i * emit : i * emit + int(ns[i])] for i in range(B)]
     packed = assemble_host(shards, packed=True, payloads=payloads, is_lasts=lasts)
     checks = {

@@ -10,6 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from deflate_rs_tpu_torch.tools import dryrun_multichip as dm  # noqa: E402
+from torch_sharded_ranks import pad_to_multiple  # noqa: E402
 
 
 def test_dryrun_two_ranks(capsys):
@@ -26,6 +27,6 @@ def test_batch_helpers():
     assert hist.tolist() == [0, 4096, 8192] and ns.tolist() == [4096, 4096, 2048]
     assert lasts.tolist() == [False, False, True]
     assert bytes(bufs[2, dm.HALO - 8192 : dm.HALO + 2048]) == data
-    (pb, ph, pn, pl), B = dm.pad_to_multiple([bufs, hist, ns, lasts], 4)
+    (pb, ph, pn, pl), B = pad_to_multiple([bufs, hist, ns, lasts], 4)
     assert B == 3 and pb.shape[0] == 4 and pn[3] == 0 and not pl[3]
     assert len(dm.dryrun_data(4096, 8)) == 8 * 4096

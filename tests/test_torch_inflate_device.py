@@ -205,12 +205,3 @@ def test_dynamic_header_parse_matches_reference_on_flipped_headers():
         for g, w, name in zip(got, want, ("litlen", "dist", "pos")):
             np.testing.assert_array_equal(g.numpy(), w[k], err_msg=f"header {k}: {name}")
 
-
-def test_decode_ops_tool_counts_a_dynamic_block(capsys):
-    from deflate_rs_tpu_torch.tools import decode_ops
-
-    assert decode_ops.main(["--device", "cpu"]) == 0
-    words = capsys.readouterr().out.replace(";", " ").split()
-    block = int(words[words.index("block") + 1])
-    header = int(words[words.index("parse") + 1])
-    assert 0 < header < block

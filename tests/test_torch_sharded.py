@@ -34,8 +34,8 @@ from deflate_rs_tpu_torch.models import deflate as tdeflate  # noqa: E402
 from deflate_rs_tpu_torch.ops import checksum as ck  # noqa: E402
 from deflate_rs_tpu_torch.ops import compaction as tcompaction  # noqa: E402
 from deflate_rs_tpu_torch.ops.chunk_encode import out_words  # noqa: E402
-from deflate_rs_tpu_torch.parallel.sharded import (  # noqa: E402
-    assemble_host, global_offsets, host_used_words)
+from deflate_rs_tpu_torch.parallel.mesh import is_distributed  # noqa: E402
+from deflate_rs_tpu_torch.parallel.sharded import assemble_host, global_offsets  # noqa: E402
 from deflate_rs_tpu_torch.tools.dryrun_multichip import spawn_ranks  # noqa: E402
 from torch_sharded_ranks import EMIT, batch, case_inputs, sharded_cases  # noqa: E402
 
@@ -137,6 +137,13 @@ def test_assemble_local_segments_tile_the_stream(world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_is_distributed_inside_the_ranks_only(world):
+    assert [(r["rank"], r["size"], r["distributed"]) for r in _ranks(world)] == [
+        (rank, world, True) for rank in range(world)]
+    assert not is_distributed()  # this process joined no group
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_sharded_packed_requires_payloads_for_stored(world):
     data, shards, local, (_, _, ns, lasts), B = _case(world, "stored")
     with pytest.raises(ValueError, match="stored chunks"):
@@ -156,7 +163,7 @@ def test_sharded_outputs_stay_sharded_and_offsets_tile(world):
     rows = bufs.shape[0] // world
     assert [len(s["nbytes"]) for s in shards] == [rows] * world
     assert [s["row0"] for s in shards] == [r * rows for r in range(world)]
-    used = host_used_words(np.concatenate([s["btype"] for s in shards]),
+    used = tcompaction.used_words_host(np.concatenate([s["btype"] for s in shards]),
                            np.concatenate([s["data_bits"] for s in shards]))
     assert int(used[:B].sum()) == 0  # random data: every chunk stored
     assert sum(len(s["cw"]) for s in shards) == int(used.sum())  # padding rows only
@@ -188,7 +195,7 @@ def test_compaction_rule_single_source():
     btype = rng.choice([JC.BTYPE_STORED, JC.BTYPE_FIXED, JC.BTYPE_DYNAMIC, JC.BTYPE_SPLIT],
                        B).astype(np.int32)
     dbits = rng.integers(1, 32 * NW, B).astype(np.int32)
-    used_h = host_used_words(btype, dbits)
+    used_h = tcompaction.used_words_host(btype, dbits)
     np.testing.assert_array_equal(used_h, jcompaction.used_words_host(btype, dbits))
     used_d = tcompaction.used_words_device(torch.from_numpy(btype), torch.from_numpy(dbits))
     np.testing.assert_array_equal(used_h, used_d.numpy())
@@ -210,7 +217,7 @@ def test_sharded_compact_fetch_volume_mixed(world):
     data, shards, _, (_, _, ns, lasts), B = _case(world, "mixed")
     btype = np.concatenate([s["btype"] for s in shards])[:B]
     dbits = np.concatenate([s["data_bits"] for s in shards])[:B]
-    used = host_used_words(btype, dbits)
+    used = tcompaction.used_words_host(btype, dbits)
     assert (btype[4:] == JC.BTYPE_STORED).all()
     assert (used[4:] == 0).all()
     assert (used[:4] == (dbits[:4] + 31) // 32).all()

@@ -8,9 +8,9 @@ import os
 import numpy as np
 
 from deflate_rs_tpu_torch.compression_options import CompressionOptions
-from deflate_rs_tpu_torch.parallel.mesh import local_chunk_range, make_mesh
+from deflate_rs_tpu_torch.parallel.mesh import is_distributed, local_chunk_range, make_mesh
 from deflate_rs_tpu_torch.parallel.sharded import assemble_local, make_sharded_encoder
-from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch, pad_to_multiple
+from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch
 
 EMIT = 4096
 PAD_ROWS = 32  # the text cases' batches, padded alike (one JAX compile serves both)
@@ -38,6 +38,15 @@ def case_inputs() -> dict:
         "mixed": (mixed, "default", True, 1),
         "uncompact": (pg[:40_000], "default", False, 1),
     }
+
+
+def pad_to_multiple(arrs, m: int):
+    """Pad every array's rows with zeros to a multiple of ``m``; returns
+    (padded arrays, the original row count).  A padding row is an empty
+    non-final chunk whose bytes the assembly drops (``n=``)."""
+    B = arrs[0].shape[0]
+    pad = (-B) % m
+    return [np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)]) for a in arrs], B
 
 
 def batch(data: bytes, pad: int, world: int):
@@ -74,5 +83,5 @@ def sharded_cases(mesh) -> dict:
         except ValueError as e:
             errors[label] = str(e)
     out["errors"] = errors
-    out["rank"], out["size"] = mesh.rank, mesh.size
+    out["rank"], out["size"], out["distributed"] = mesh.rank, mesh.size, is_distributed()
     return out
