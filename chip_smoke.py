@@ -89,6 +89,24 @@ Phases (each prints a line; any failure exits non-zero):
    packed splice) beside three of the corpus engine; every kernel's launch
    counter must move during a timed run.  Then
    ``tools.dryrun_multichip.dryrun_multichip`` spawns one rank a card.
+11. knobs: the long-range knobs on Default and high, each with
+   ``lr_global=64``, ``lr_global=256`` and ``lr_stride=2``, on pg11 and the
+   mix's first 1 MiB: CUDA bytes equal the CPU port's and round-trip.
+   ``lr_measure`` at the ``lr_global`` pass's whole-chunk window (one
+   segment, M = D slots: its tiled path) against its plain version on the
+   operands the pass hands it: Default at D = 64 on 64 chunks (timed: the
+   ``lr_measure_global`` row of the kernels line), one chunk, D = 256, high,
+   32 streams of 4 KiB and 8 chunks of 256 KiB; then the whole-window
+   adversarial operands of ``utils/kernel_cases.py``.  MB/s of the one-shot
+   on the 16 MiB mix, Default with ``lr_global=64`` and without a knob in
+   turns, three runs each, and high with ``lr_global=64`` once; a knob run
+   must launch the tiled path and not the block path, every knob-free path
+   the block path and not the tiled one.
+12. soak: ``tools/sharded_soak.py`` at world size 1 over NCCL on 256 MiB of
+   its corpus (the tool's default of 512 MiB halved, to keep this script
+   short), in steps of 32 chunks: the byte-aligned stream round-trips through
+   zlib, the combined checksums equal zlib's, the packed splice equals the
+   one-shot bytes; MB/s and bytes fetched.
 
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
@@ -96,8 +114,8 @@ operations over 16.75 T op/s (the card's 67 TFLOP/s of float32 counts an FMA
 as two on 128 lanes per SM; int32 has 64 lanes and counts one).  Operations
 counted, from the data of the run: parse_scan 2 per token of the result;
 package_merge 3 per live leaf and level (a merge of about 2m entries and m
-pair sums); lr_measure 8 per word and live dominant; token_fields 10 and
-quarter_hist 2 per position.
+pair sums); lr_measure 8 per word and live dominant (at either geometry);
+token_fields 10 and quarter_hist 2 per position.
 
 The last two lines are a JSON object describing the kernels and the
 ``{"ok": true, "device": ...}`` line.
@@ -301,11 +319,25 @@ def spread(values: list) -> str:
             f"{v[3 * len(v) // 4]:.3f} max {v[-1]:.3f}")
 
 
-def timed_run(dt, cuda, data: bytes, opts, label: str, skip: tuple = ()) -> dict:
+TILED = "lr_measure_tiled"  # lr_measure's tiled path: the lr_global pass only
+
+
+def check_launches(label: str, counts: dict, off_path: tuple = (TILED,)) -> None:
+    """Every kernel must have launched on the path, but those ``off_path``,
+    which must not have (the presets' long-range windows all fit the block
+    path, so the tiled one is off every knob-free path)."""
+    missing = [k for k, v in counts.items() if v == 0 and k not in off_path]
+    stray = [k for k in off_path if counts.get(k)]
+    if missing or stray:
+        raise SystemExit(f"{label}: kernels not launched on its path: {missing}; launched "
+                         f"off it: {stray}")
+
+
+def timed_run(dt, cuda, data: bytes, opts, label: str, off_path: tuple = (TILED,)) -> dict:
     """Warm run, then ``deflate_bytes_conf`` timed with the launch counters
     set to 0 just before it; zlib and gzip framings after.  All three must
-    round-trip, and every kernel not in ``skip`` (kernels off the preset's
-    path) must have launched.  Returns the launch counts of the timed run."""
+    round-trip, and every kernel but those ``off_path`` must have launched
+    (see ``check_launches``).  Returns the launch counts of the timed run."""
     import torch
 
     dt.deflate_bytes_conf(data, opts, device="cuda")  # warm run
@@ -333,9 +365,7 @@ def timed_run(dt, cuda, data: bytes, opts, label: str, skip: tuple = ()) -> dict
           f"zlib {mb / wall_z:.2f} MB/s, gzip {mb / wall_g:.2f} MB/s (warm; above four "
           f"chunks through the corpus engine at its default batch)")
     print(f"{label}: launches during the timed deflate run: {launches}")
-    missing = [k for k, v in launches.items() if v == 0 and k not in skip]
-    if missing:
-        raise SystemExit(f"{label}: kernels not launched on its path: {missing}")
+    check_launches(label, launches, off_path)
     return launches
 
 
@@ -554,9 +584,7 @@ def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes
             rates.append(mb / wall)
         corpus_rates = [mb / wall_of(lambda: corpus.compress_corpus(mix, device="cuda"))[1]
                         for _ in range(3)]
-        missing = [k for k, v in counts.items() if v == 0]
-        if missing:
-            raise SystemExit(f"sharded: kernels not launched on its path: {missing}")
+        check_launches("sharded", counts)
         fetched = shard["cw"].nbytes + 6 * 8 * len(ns)
         print(f"sharded: world size {mesh.size} over {dist.get_backend()}, {len(ns)} chunks of {emit} B on "
               f"{mesh.device}: packed == one-shot bytes, byte-aligned (assemble_host and "
@@ -576,6 +604,177 @@ def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes
           f"{s['packed_bytes']}), block types {s['block_types']}; the file the ranks wrote "
           "round-trips and equals the one-shot bytes; more than one card is not measured here")
     return counts
+
+
+def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
+    """The long-range knobs ``lr_global`` and ``lr_stride``: CUDA bytes equal
+    the CPU port's; ``lr_measure`` at the whole-chunk window (its tiled path)
+    against its plain version on the operands the global pass hands it, and
+    on the adversarial ones, timed; MB/s of Default with ``lr_global=64``.
+    Returns the ``lr_measure_global`` row of the kernels line."""
+    import dataclasses
+
+    import torch
+
+    from deflate_rs_tpu_torch.ops import lr_kernel
+    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+    from deflate_rs_tpu_torch.parallel import corpus
+    from deflate_rs_tpu_torch.utils import kernel_cases
+
+    dev = torch.device("cuda", 0)
+    O = dt.CompressionOptions
+    head = mix[: 1 << 20]
+    knobs = ({"lr_global": 64}, {"lr_global": 256}, {"lr_stride": 2})
+    for preset in ("default", "high"):
+        for knob in knobs:
+            o = dataclasses.replace(getattr(O, preset)(), **knob)
+            sizes = []
+            for name, data in (("pg11", pg11), ("mix[:1 MiB]", head)):
+                got = dt.deflate_bytes_conf(data, o, device="cuda")
+                if got != dt.deflate_bytes_conf(data, o, device="cpu"):
+                    raise SystemExit(f"knobs: {preset} {knob}: CUDA bytes differ from the CPU "
+                                     f"port's on {name}")
+                if zlib.decompress(got, -15) != data:
+                    raise SystemExit(f"knobs: {preset} {knob}: {name} does not round-trip")
+                sizes.append(len(got))
+            print(f"knobs: {preset} {knob}: pg11 -> {sizes[0]} B, mix[:1 MiB] -> {sizes[1]} B; "
+                  "CUDA bytes == CPU port bytes, round-trip")
+
+    # lr_measure at the global pass's operands: S = 1, M = D.
+    def plain_rows(args, step=16):
+        """The plain version a few rows at a time (its [B, 1, M, LW] temporaries
+        are large); rows are independent."""
+        buf, doms, N = args
+        parts = [lr_kernel.lr_measure_plain(buf[i : i + step], doms[i : i + step], N)
+                 for i in range(0, buf.shape[0], step)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def global_operands(preset, D, operands, emit, lo, hi):
+        o = dataclasses.replace(getattr(O, preset)(), lr_global=D,
+                                chain_scale=max(1, emit // 65536))
+        bufs, hist, ns, last = (torch.from_numpy(a[lo:hi]) for a in operands)
+        with torch.no_grad():
+            seen = harvest(ChunkEncoder(o, emit).to(dev), bufs.to(dev), hist, ns, last)
+        return seen["lr_measure"]
+
+    kb = corpus.BATCH_SIZE
+    t64 = tier_buffers(mix, 65536, kb)
+    sets = {
+        "default_d64": ("default", 64, t64, 65536, 0, kb, True),
+        "default_d64_b1": ("default", 64, t64, 65536, 1, 2, True),
+        "default_d256": ("default", 256, t64, 65536, 0, kb, True),
+        "high_d64": ("high", 64, t64, 65536, 0, kb, True),
+        "default_d64_4k": ("default", 64, tier_buffers(mix, 4096, BATCH), 4096, 0, BATCH, False),
+        "default_d64_wide": ("default", 64, wide_buffers(mix), WIDE_EMIT, 0, WIDE_BATCH, True),
+    }
+    res = {"max_abs_err": 0}
+    for key, (preset, D, operands, emit, lo, hi, timed) in sets.items():
+        args = global_operands(preset, D, operands, emit, lo, hi)
+        buf, doms, N = args
+        if tuple(doms.shape[1:]) != (1, D):
+            raise SystemExit(f"knobs: the global pass handed lr_measure {tuple(doms.shape)}")
+        got = lr_kernel.lr_measure(*args)
+        want = plain_rows(args)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        live = int((doms > 0).sum())
+        if err != 0:
+            raise SystemExit(f"kernel lr_measure_global disagrees with its plain version on "
+                             f"{key}: max_abs_err={err}")
+        if not timed:
+            print(f"kernel lr_measure_global ({key}) shapes={tuple(buf.shape)}, "
+                  f"{tuple(doms.shape)}: max_abs_err=0, {live} live slots")
+            continue
+        k_ms = kernel_ms(lambda: lr_kernel.lr_measure(*args))
+        e_ms = cuda_ms(lambda: lr_kernel.lr_measure(*args), 20)
+        p_ms = cuda_ms(lambda: plain_rows(args), 2)
+        bytes_ms, ops_ms = bound_of("lr_measure", args, got)
+        bound = max(bytes_ms, ops_ms)
+        res[key] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms, "bytes_ms": bytes_ms,
+                    "ops_ms": ops_ms, "bound_ms": bound, "live": live}
+        print(f"kernel lr_measure_global ({key}) shapes={tuple(buf.shape)}, {tuple(doms.shape)}, "
+              f"{live} live slots: max_abs_err=0 kernel {k_ms:.4f} ms (eager loop {e_ms:.4f}) "
+              f"plain {p_ms:.4f} ms bound {bound:.5f} ms (bytes {bytes_ms:.5f}, operations "
+              f"{ops_ms:.5f}) share {100 * bound / k_ms:.1f} %")
+    torch.cuda.empty_cache()
+    for B, N, D, seed in kernel_cases.LR_GLOBAL_CASES:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.lr_global_batch(B, N, D, seed))
+        if not all(torch.equal(g, w) for g, w in zip(lr_kernel.lr_measure(*a, N),
+                                                     lr_kernel.lr_measure_plain(*a, N))):
+            raise SystemExit(f"lr_measure disagrees on the whole-window case B={B} N={N} D={D} "
+                             f"seed={seed}")
+    torch.cuda.synchronize()
+    print(f"kernels: whole-window adversarial cases equal the plain version exactly: "
+          f"{len(kernel_cases.LR_GLOBAL_CASES)}")
+
+    # MB/s of the one-shot with lr_global=64 beside the knob-free Default, in turns.
+    o64, o0 = dataclasses.replace(O.default(), lr_global=64), O.default()
+    mb = len(mix) / 1e6
+    dt.deflate_bytes_conf(mix, o64, device="cuda")  # warm
+    rates = {"lr_global=64": [], "no knob": []}
+    counts = None
+    for _ in range(3):
+        for name, o in (("lr_global=64", o64), ("no knob", o0)):
+            cuda.reset_launches()
+            out, wall = wall_of(lambda: dt.deflate_bytes_conf(mix, o, device="cuda"))
+            rates[name].append(mb / wall)
+            if name == "lr_global=64":
+                counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+                if zlib.decompress(out, -15) != mix:
+                    raise SystemExit("knobs: Default lr_global=64 on the mix does not round-trip")
+                ratio = len(out) / len(mix)
+    check_launches("knobs: Default lr_global=64", counts, off_path=("lr_measure",))
+    cuda.reset_launches()
+    hi, wall_hi = wall_of(lambda: dt.deflate_bytes_conf(
+        mix, dataclasses.replace(O.high(), lr_global=64), device="cuda"))
+    counts_high = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+    check_launches("knobs: high lr_global=64", counts_high, off_path=("lr_measure",))
+    print(f"knobs: one-shot on the 16 MiB mix, Default lr_global=64 "
+          f"{[round(r, 2) for r in rates['lr_global=64']]} MB/s (ratio {ratio:.4f}), knob-free "
+          f"Default {[round(r, 2) for r in rates['no knob']]} MB/s, in turns; launches of a "
+          f"lr_global=64 run {counts}; high lr_global=64 {mb / wall_hi:.2f} MB/s (one run, "
+          f"ratio {len(hi) / len(mix):.4f}), launches {counts_high}")
+    d64 = res["default_d64"]
+    return {
+        "name": "lr_measure_global", "route": "cuda",
+        "source": "deflate_rs_tpu_torch/csrc/lr_measure.cu",
+        "replaces": "deflate_rs_tpu/ops/lr_kernel.py:84",
+        "launches": counts[TILED], "launches_high": counts_high[TILED],
+        "batch": kb, "live": d64["live"],
+        "b1_ms": res["default_d64_b1"]["ms"], "b1_plain_ms": res["default_d64_b1"]["plain_ms"],
+        "b1_bound_ms": res["default_d64_b1"]["bound_ms"],
+        "d256_ms": res["default_d256"]["ms"], "d256_bound_ms": res["default_d256"]["bound_ms"],
+        "high_ms": res["high_d64"]["ms"], "high_bound_ms": res["high_d64"]["bound_ms"],
+        "wide_batch": WIDE_BATCH, "wide_ms": res["default_d64_wide"]["ms"],
+        "wide_bound_ms": res["default_d64_wide"]["bound_ms"],
+        "max_abs_err": res["max_abs_err"],
+        "ms": d64["ms"], "eager_ms": d64["eager_ms"], "plain_ms": d64["plain_ms"],
+        "bound_ms": d64["bound_ms"],
+        "bound_by": "bytes" if d64["bytes_ms"] >= d64["ops_ms"] else "operations",
+        "library_ms": None,
+        "mb_per_s": rates["lr_global=64"], "mb_per_s_no_knob": rates["no knob"],
+    }
+
+
+SOAK_MIB = 256  # the tool's default is 512 MiB: halved to keep this script short
+
+
+def soak_phase() -> None:
+    """The sharded soak at world size 1 over NCCL: steps of 32 chunks over
+    ``SOAK_MIB`` MiB, byte-aligned stream through zlib, combined checksums,
+    packed splice == the one-shot bytes."""
+    from deflate_rs_tpu_torch.tools.sharded_soak import soak
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    s = soak(SOAK_MIB << 20, world=1, device="cuda")
+    print(f"soak: world size 1 over NCCL, {SOAK_MIB} MiB (the tool's default 512 MiB cut to "
+          f"half), {s['steps']} steps of 32 chunks: {s['input_bytes']} -> {s['stream_bytes']} B "
+          f"byte-aligned ({s['packed_bytes']} B packed), round-trips through zlib, checksums "
+          f"== zlib's, packed == one-shot bytes; {s['mb_per_s']:.2f} MB/s ({s['seconds']:.2f} s "
+          f"of steps and splices); fetched {s['fetched_bytes']} B; block types "
+          f"{s['block_types']}; {time.perf_counter() - t0:.1f} s with the spawn and the checks")
 
 
 def main() -> int:
@@ -827,7 +1026,7 @@ def main() -> int:
         # fast runs no long-range pass (the only preset with a matcher
         # that skips it), so lr_measure is off its path.
         launches[name] = timed_run(dt, cuda, mix, o, name,
-                                   skip=("lr_measure",) if name == "fast" else ())
+                                   off_path=("lr_measure", TILED) if name == "fast" else (TILED,))
     print(f"presets: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------- kernels, wide
@@ -955,9 +1154,7 @@ def main() -> int:
                   f"(meta {st_['meta_bytes'] // st_['batches']}, words "
                   f"{st_['words_bytes'] // st_['batches']}; {st_['batches']} batches)")
     launches["corpus"] = launches[f"corpus_{corpus.BATCH_SIZE}_{corpus.QUEUE_DEPTH}"]
-    missing = [k for k, v in launches["corpus"].items() if v == 0]
-    if missing:
-        raise SystemExit(f"corpus: kernels not launched on its path: {missing}")
+    check_launches("corpus", launches["corpus"])
     print(f"corpus: launches during a timed run at the defaults: {launches['corpus']}; phase "
           f"done at {time.perf_counter() - t_start:.1f} s")
 
@@ -989,9 +1186,7 @@ def main() -> int:
         print(f"streaming: {cls.__name__} == one-shot CUDA bytes; 1 MiB writes {mb / wall:.2f} "
               f"MB/s, 99,991 B writes {len(data99) / 1e6 / wall99:.2f} MB/s over "
               f"{len(data99) >> 20} MiB; launches (1 MiB writes) {counts}")
-    missing = [k for k, v in launches["streaming"].items() if v == 0]
-    if missing:
-        raise SystemExit(f"streaming: kernels not launched on its path: {missing}")
+    check_launches("streaming", launches["streaming"])
     flushed = stream_through(ZlibEncoder, quarter, 99_991, flush_every=300_000, device="cuda")
     if zlib.decompress(flushed) != quarter or flushed.count(b"\x00\x00\xff\xff") < 10:
         raise SystemExit("streaming: a stream with a flush every 300,000 B does not round-trip")
@@ -1037,9 +1232,7 @@ def main() -> int:
             raise SystemExit("streaming: a 4 KiB stream does not round-trip")
         if i:
             small_ms.append(ms)
-    missing = [k for k, v in launches["single_chunk"].items() if v == 0]
-    if missing:
-        raise SystemExit(f"streaming: kernels not launched at B = 1: {missing}")
+    check_launches("streaming at B = 1", launches["single_chunk"])
     print(f"streaming: single chunk, 64 KiB write + flush(), 20 after a warm one: "
           f"{spread(chunk_ms)} ms; launches of the 20: {launches['single_chunk']}")
     print(f"streaming: single chunk, 4 KiB write + finish(), 20 after a warm one: "
@@ -1074,6 +1267,14 @@ def main() -> int:
     # ------------------------------------------------------------ sharded
     launches["sharded"] = sharded_phase(dt, cuda, mix, new.deflate, unpacked, wall_of)
     print(f"sharded: phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # -------------------------------------------------------------- knobs
+    global_row = knobs_phase(dt, cuda, pg11, mix, wall_of)
+    print(f"knobs: phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # --------------------------------------------------------------- soak
+    soak_phase()
+    print(f"soak: phase done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "lr_measure": ("deflate_rs_tpu_torch/csrc/lr_measure.cu", "deflate_rs_tpu/ops/lr_kernel.py:84",
@@ -1129,6 +1330,7 @@ def main() -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if None in lib else sum(lib),
         })
+    rows.append(global_row)
     high_pm = results["lengths_by_rank_15_high"]
     print(f"package_merge at high's shape: kernel {high_pm['ms']:.4f} ms plain "
           f"{high_pm['plain_ms']:.4f} ms bound {max(high_pm['bytes_ms'], high_pm['ops_ms']):.5f} ms")
@@ -1142,7 +1344,12 @@ def main() -> int:
           "batch of the one-shot and corpus runs; b1_* the same at one chunk, the batch of the "
           f"single-chunk run; sharded_* the same at {n_sharded} chunks, the sharded step's batch; "
           f"wide_ms and wide_bound_ms at {WIDE_BATCH} chunks of {WIDE_EMIT} bytes; max_abs_err "
-          "over every batch and tier checked")
+          "over every batch and tier checked. The lr_measure_global row is lr_measure's tiled "
+          "path at the lr_global pass's whole-chunk window: launches of the timed Default "
+          "lr_global=64 run (launches_high: high's), ms to bound_ms at 64 chunks on Default's "
+          "global operands at D = 64 (live: their live slots), b1_* at one chunk, d256_* at "
+          "D = 256, high_* on high's, wide_* at 8 chunks of 262,144 bytes; mb_per_s of three "
+          "Default lr_global=64 runs and mb_per_s_no_knob of three knob-free ones, in turns")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

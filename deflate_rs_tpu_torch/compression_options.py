@@ -5,12 +5,8 @@ reference's configuration surface, compression_options.rs:31-196), with the
 same presets, resolved properties and ``cache_key()``.  The JAX package's
 kernel gates (``lr_kernel``, ``hist_kernel``, ``field_kernel``) are left out:
 on a CUDA tensor the port's kernels always run, and on a CPU tensor their
-plain PyTorch versions do.
-
-``check_slice`` is the scope guard: the port runs every preset; the two
-long-range knobs it does not run yet (``lr_global``, and ``lr_stride > 1``
-without pair collapse) raise ``NotImplementedError`` naming the ROADMAP
-item that will port them.
+plain PyTorch versions do.  Every option the JAX package accepts runs,
+the long-range knobs ``lr_global`` and ``lr_stride`` included.
 """
 
 from __future__ import annotations
@@ -296,20 +292,3 @@ def options_from_reference(fields: dict) -> CompressionOptions:
             kw[name] = cls(getattr(kw[name], "value", kw[name]))
     return CompressionOptions(**kw)
 
-
-def check_slice(options: CompressionOptions) -> None:
-    """Raise ``NotImplementedError`` for options outside the ported path.
-
-    Every preset is ported; what is left are two internal long-range knobs
-    that no preset sets."""
-    if not (options.matcher_mode == "hash" and options.use_long_range):
-        return
-    if options.lr_global:
-        raise NotImplementedError(
-            "lr_global (global_dominant_lengths, union_dominants) is not "
-            "ported yet: ROADMAP Queue 1 item 17 (internal long-range knobs)")
-    if not options.resolved_lr_pair:
-        raise NotImplementedError(
-            f"lr_stride={options.lr_stride} (a strided harvest without pair "
-            "collapse) is not ported yet: ROADMAP Queue 1 item 17 (internal "
-            "long-range knobs)")

@@ -33,6 +33,24 @@
 // Bound on the card: bytes on text (the three outputs, 16 bytes a word),
 // integer instructions where most slots are live: a step costs a warp about
 // 80 of them for 128 words, and the card runs integer work at half rate.
+//
+// The tiled path (lr_measure_tiled) takes the geometries the block above
+// cannot: a window of more than kMaxWindow words (the lr_global pass
+// measures the whole chunk as one segment: 9,283 words at the 4 KiB tier,
+// 24,643 at 64 KiB, 73,795 at 256 KiB) or more than 64 slots (its union
+// holds up to dom_segs * num_dom distances).  The window is cut into tiles
+// of kTile words, one block per (tile, segment, chunk), so a batch of 64
+// chunks fills the card.  A run from a word start must be exact over the
+// whole window, not clipped at its tile's end (two dominants whose runs both
+// pass 258 bytes are told apart by their true lengths), so it takes two
+// passes.  Pass 1: per tile after the first and live slot, a warp scans the
+// tile forwards to its first mismatching byte and stops there (one step on
+// most text).  Pass 2: per tile, a warp per live slot takes the least of
+// those positions over the tiles after its own (the carry) and walks its
+// tile as the block above walks a window, starting from that carry.  The
+// winner key is 64 bits, run << 32 | ~slot, so any slot count keeps "longest
+// run, then first slot"; the first word of the next tile gets its key from
+// the carry too, which gives the tile's last word its xor_next.
 
 #include <climits>
 #include <cstdint>
@@ -58,6 +76,16 @@ struct Row {
     int r;
     int len;
 };
+
+// Chunk b's row of the batch's buffers.
+__device__ __forceinline__ Row row_of(const uint8_t* bufs, int buf_len, int b) {
+    const uint8_t* rowp = bufs + (size_t)b * buf_len;
+    Row row;
+    row.r = (int)(reinterpret_cast<uintptr_t>(rowp) & 3);
+    row.words = reinterpret_cast<const uint32_t*>(rowp - row.r);
+    row.len = buf_len;
+    return row;
+}
 
 // Aligned word k of the row, bytes 4k - r .. 4k - r + 3 of the buffer; bytes
 // outside [0, len) read as 0 (and a word wholly outside is not loaded).
@@ -89,19 +117,23 @@ __device__ __forceinline__ int low_bytes(uint32_t x) {
 // kWordsPerLane neighbouring words of a step.  `kEdge`: the words d bytes back
 // may lie outside the chunk's buffer and are loaded with bounds tests and
 // masks; otherwise plain.  Positions are bytes of the window; `none` = 4 * LW
-// stands for no mismatch.  Words between LW and the end of the last step are
-// measured like any other: their mismatches lie at or above `none` and are
-// clamped to it, and their keys land in the padding of `best`.
-template <bool kEdge>
+// stands for no mismatch, and `carry` is the first mismatch after the steps
+// (`none` for a whole window, the later tiles' for a tile).  Words between LW
+// and the end of the last step are measured like any other: their
+// mismatches lie at or above `none` and are clamped to it, and their keys
+// land in the padding of `best`.  Keys are run << kShift | tag, a maximum
+// per word: an int with tag 63 - m for the block path (kShift 6), 64 bits
+// with tag ~m for the tiled path (kShift 32).
+template <bool kEdge, class Key, int kShift>
 __device__ __forceinline__ void walk(const Row& row, int k0, int sh, const uint32_t* base,
-                                     int* best, int none, int steps, int slot, int lane) {
+                                     Key* best, int none, int carry, int steps, Key tag,
+                                     int lane) {
     constexpr int W = kWordsPerLane;
     const uint32_t* src = row.words + k0 + W * lane;
     auto word = [&](int at) {
         return kEdge ? aligned_word(row, k0 + W * lane + at) : __ldg(src + at);
     };
     const int from = (lane + 1) & 31;
-    int carry = none;
     uint32_t above = lane == 0 ? word(steps * kSpan) : 0u;  // the first word past the steps
     uint32_t ahead[W];
 #pragma unroll
@@ -137,12 +169,12 @@ __device__ __forceinline__ void walk(const Row& row, int k0, int sh, const uint3
         const unsigned rest = (__ballot_sync(kFull, any != 0) >> lane) >> 1;  // lanes above
         const int theirs = __shfl_sync(kFull, own[0], lane + __ffs(rest));
         const int after = min(rest ? theirs : carry, none);
-        const int kw = slot - (w0 << 8);  // key = (first - 4w) << 6 | slot
+        const Key kw = tag - ((Key)w0 << (kShift + 2));  // key = (first - 4w) << kShift | tag
 #pragma unroll
         for (int i = 0; i < W; ++i) {
             const int first = min(own[i], after);
             if (i == 0) carry = __shfl_sync(kFull, first, 0);
-            const int key = (first << 6) + kw - (i << 8);
+            const Key key = ((Key)first << kShift) + kw - ((Key)i << (kShift + 2));
             if (key > best[w0 + i]) atomicMax(&best[w0 + i], key);
         }
     }
@@ -163,11 +195,7 @@ lr_measure_kernel(const uint8_t* __restrict__ bufs, int buf_len,
     const int b = blockIdx.y;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const uint8_t* rowp = bufs + (size_t)b * buf_len;
-    Row row;
-    row.r = (int)(reinterpret_cast<uintptr_t>(rowp) & 3);
-    row.words = reinterpret_cast<const uint32_t*>(rowp - row.r);
-    row.len = buf_len;
+    const Row row = row_of(bufs, buf_len, b);
     const int pos0 = s * L;
     const int* drow = doms + ((size_t)b * S + s) * M;
     const size_t o = ((size_t)b * S + s) * LW;  // this segment's row of the outputs
@@ -200,9 +228,9 @@ lr_measure_kernel(const uint8_t* __restrict__ bufs, int buf_len,
         const int slot = kMaxSlots - 1 - m;
         // The walk reads aligned words k0 .. k0 + padded.
         if (4 * k0 - row.r >= 0 && 4 * (k0 + padded + 1) - row.r <= row.len) {
-            walk<false>(row, k0, sh, base, best, 4 * LW, steps, slot, lane);
+            walk<false, int, 6>(row, k0, sh, base, best, 4 * LW, 4 * LW, steps, slot, lane);
         } else {
-            walk<true>(row, k0, sh, base, best, 4 * LW, steps, slot, lane);
+            walk<true, int, 6>(row, k0, sh, base, best, 4 * LW, 4 * LW, steps, slot, lane);
         }
     }
     __syncthreads();
@@ -220,6 +248,143 @@ lr_measure_kernel(const uint8_t* __restrict__ bufs, int buf_len,
     }
 }
 
+constexpr int kTile = 16 * kSpan;  // words of a tile of the tiled path
+
+// Pass 1, block (t - 1, s, b) for tile t >= 1: per live slot m, the window
+// byte of the tile's first mismatch (4 * LW where the tile has none) into
+// first_out[b, s, m, t].  A warp steps forwards through the tile, each lane
+// on 4 words, and stops at the first step with a mismatch.
+__global__ void __launch_bounds__(kThreads)
+lr_tile_first_kernel(const uint8_t* __restrict__ bufs, int buf_len,
+                     const int* __restrict__ doms, int S, int M, int L, int LW, int tiles,
+                     int* __restrict__ first_out) {
+    __shared__ uint32_t base[kTile];
+    const int t = blockIdx.x + 1;
+    const int s = blockIdx.y;
+    const int b = blockIdx.z;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const Row row = row_of(bufs, buf_len, b);
+    const int tw0 = t * kTile;
+    const int nw = min(kTile, LW - tw0);  // the tile's words inside the window
+    const int pos0 = s * L + 4 * tw0;     // the tile's first byte in the buffer
+    const int* drow = doms + ((size_t)b * S + s) * M;
+    int alive = 0;
+    for (int m = threadIdx.x; m < M; m += kThreads) alive |= __ldg(drow + m) > 0;
+    if (!__syncthreads_or(alive)) return;
+    for (int w = threadIdx.x; w < nw; w += kThreads) base[w] = word_at(row, pos0 + 4 * w);
+    __syncthreads();
+
+    constexpr int W = kWordsPerLane;
+    for (int m = warp; m < M; m += kWarps) {
+        const int d = __ldg(drow + m);
+        if (d <= 0) continue;  // uniform per warp
+        const int q0 = pos0 - d + row.r;
+        const int k0 = q0 >> 2;
+        const int sh = 8 * (q0 & 3);
+        int found = 4 * LW;
+        for (int w0 = 0; w0 < nw; w0 += kSpan) {
+            const int w = w0 + W * lane;
+            uint32_t a[W + 1];
+#pragma unroll
+            for (int i = 0; i <= W; ++i) a[i] = aligned_word(row, k0 + w + i);
+            int own = INT_MAX;
+#pragma unroll
+            for (int i = W - 1; i >= 0; --i) {
+                if (w + i < nw) {
+                    const uint32_t x = base[w + i] ^ __funnelshift_r(a[i], a[i + 1], sh);
+                    if (x) own = 4 * (w + i) + low_bytes(x);
+                }
+            }
+            const unsigned hit = __ballot_sync(kFull, own != INT_MAX);
+            if (hit) {
+                found = 4 * tw0 + __shfl_sync(kFull, own, __ffs(hit) - 1);
+                break;
+            }
+        }
+        if (lane == 0) first_out[(((size_t)b * S + s) * M + m) * tiles + t] = found;
+    }
+}
+
+// Pass 2, block (t, s, b): the tile's words, as lr_measure_kernel measures a
+// window, each live slot's walk starting from the least first mismatch of
+// the tiles after this one.
+__global__ void __launch_bounds__(kThreads)
+lr_tile_walk_kernel(const uint8_t* __restrict__ bufs, int buf_len,
+                    const int* __restrict__ doms, int S, int M, int L, int LW, int tiles,
+                    const int* __restrict__ first_in, int* __restrict__ run_out,
+                    int* __restrict__ dist_out, long long* __restrict__ xn_out) {
+    __shared__ uint32_t base[kTile];
+    __shared__ unsigned long long best[kTile + 1];  // and the next tile's first word
+    const int t = blockIdx.x;
+    const int s = blockIdx.y;
+    const int b = blockIdx.z;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const Row row = row_of(bufs, buf_len, b);
+    const int tw0 = t * kTile;
+    const int nw = min(kTile, LW - tw0);
+    const int steps = (nw + kSpan - 1) / kSpan;
+    const int padded = steps * kSpan;
+    const int pos0 = s * L + 4 * tw0;
+    const int* drow = doms + ((size_t)b * S + s) * M;
+    const size_t o = ((size_t)b * S + s) * LW + tw0;  // the tile's first output
+    int alive = 0;
+    for (int m = threadIdx.x; m < M; m += kThreads) alive |= __ldg(drow + m) > 0;
+    if (!__syncthreads_or(alive)) {
+        for (int w = threadIdx.x; w < nw; w += kThreads) {
+            run_out[o + w] = -1;
+            dist_out[o + w] = 0;
+            xn_out[o + w] = 0;
+        }
+        return;
+    }
+    for (int w = threadIdx.x; w < padded; w += kThreads) {
+        base[w] = word_at(row, pos0 + 4 * w);
+        best[w] = 0;
+    }
+    if (threadIdx.x == 0) best[kTile] = 0;
+    __syncthreads();
+
+    const int none = 4 * (LW - tw0);  // tile bytes from here on
+    for (int m = warp; m < M; m += kWarps) {
+        const int d = __ldg(drow + m);
+        if (d <= 0) continue;
+        const int* f = first_in + (((size_t)b * S + s) * M + m) * tiles;
+        int c = 4 * LW;
+        for (int u = t + 1 + lane; u < tiles; u += 32) c = min(c, __ldg(f + u));
+#pragma unroll
+        for (int k = 16; k > 0; k >>= 1) c = min(c, __shfl_xor_sync(kFull, c, k));
+        const int carry = c - 4 * tw0;
+        const unsigned long long tag = ~(unsigned)m;
+        // The next tile's first word starts its run at the carry.
+        if (lane == 0 && t + 1 < tiles) {
+            atomicMax(&best[kTile], (unsigned long long)(carry - 4 * kTile) << 32 | tag);
+        }
+        const int q0 = pos0 - d + row.r;
+        const int k0 = q0 >> 2;
+        const int sh = 8 * (q0 & 3);
+        if (4 * k0 - row.r >= 0 && 4 * (k0 + padded + 1) - row.r <= row.len) {
+            walk<false, unsigned long long, 32>(row, k0, sh, base, best, none, carry, steps, tag,
+                                                lane);
+        } else {
+            walk<true, unsigned long long, 32>(row, k0, sh, base, best, none, carry, steps, tag,
+                                               lane);
+        }
+    }
+    __syncthreads();
+
+    for (int w = threadIdx.x; w < nw; w += kThreads) {
+        const unsigned long long key = best[w];
+        const unsigned long long next = tw0 + w + 1 < LW ? best[w + 1] : 0ull;
+        uint32_t xn = 0;
+        if (next) xn = base[w] ^ word_at(row, pos0 + 4 * w - __ldg(drow + ~(unsigned)next));
+        run_out[o + w] = key ? (int)(key >> 32) : -1;
+        dist_out[o + w] = key ? __ldg(drow + ~(unsigned)key) : 0;
+        xn_out[o + w] = (long long)xn;
+    }
+}
+
 }  // namespace
 
 extern "C" int lr_measure(const uint8_t* bufs, int buf_len, const int* doms, int B,
@@ -231,5 +396,24 @@ extern "C" int lr_measure(const uint8_t* bufs, int buf_len, const int* doms, int
     dim3 grid(S, B);
     lr_measure_kernel<<<grid, kThreads, shmem, stream>>>(bufs, buf_len, doms, S, M, L, LW,
                                                         run_out, dist_out, xn_out);
+    return (int)cudaGetLastError();
+}
+
+// The tiled path: any window width and slot count.  `first_scratch` holds
+// int32[B, S, M, tiles] (tiles = ceil(LW / kTile)); its entries of dead
+// slots and of tile 0 are never written or read.
+extern "C" int lr_measure_tiled(const uint8_t* bufs, int buf_len, const int* doms, int B,
+                                int S, int M, int L, int LW, int* first_scratch,
+                                int* run_out, int* dist_out, long long* xn_out,
+                                cudaStream_t stream) {
+    const int tiles = (LW + kTile - 1) / kTile;
+    if (tiles > 1) {
+        lr_tile_first_kernel<<<dim3(tiles - 1, S, B), kThreads, 0, stream>>>(
+            bufs, buf_len, doms, S, M, L, LW, tiles, first_scratch);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    lr_tile_walk_kernel<<<dim3(tiles, S, B), kThreads, 0, stream>>>(
+        bufs, buf_len, doms, S, M, L, LW, tiles, first_scratch, run_out, dist_out, xn_out);
     return (int)cudaGetLastError();
 }

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..compression_options import Compression, CompressionOptions, check_slice
+from ..compression_options import Compression, CompressionOptions
 from ..ops.chunk_encode import HALO, PAD, ChunkEncoder
 from ..runtime import native
 from .assembly import BitAssembler, splice_encoded_chunk
@@ -88,7 +88,6 @@ def compress_stream(data: bytes, options: CompressionOptions, *, packed: bool = 
     ``batch_chunks`` chunks per device call and fetches their whole word
     buffers.
     """
-    check_slice(options)
     n = len(data)
     if pipelined is None:
         pipelined = packed and n > 4 * FULL_EMIT

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..compression_options import Compression, CompressionOptions, check_slice
+from ..compression_options import Compression, CompressionOptions
 from ..ops.chunk_encode import HALO, PAD
 from ..ops.compaction import used_words_host
 from ..runtime import native
@@ -53,7 +53,6 @@ class _DeflateCore:
     """Shared chunked-compression state machine."""
 
     def __init__(self, options: CompressionOptions, device):
-        check_slice(options)
         self.options = options
         self.device = torch.device(device)
         self.reset_state()

@@ -26,14 +26,14 @@ import torch
 from torch import nn
 
 from .. import constants as C
-from ..compression_options import CompressionOptions, SpecialOptions, check_slice
+from ..compression_options import CompressionOptions, SpecialOptions
 from .bitpack import pack_fields
 from .canonical import canonical_codes
 from .checksum import CRC_TABLE, adler32_parts_device, crc32_raw_device, shift_byte_tables
 from .code_lengths import CL_CAP, encode_code_lengths
 from .field_kernel import token_fields
 from .hist_kernel import quarter_histograms
-from .longrange import local_dominant_lengths
+from .longrange import global_dominant_lengths, local_dominant_lengths
 from .matching import (chain_extend, find_matches, find_matches_hash, find_rle_matches,
                        stride_extend)
 from .package_merge import package_merge_rows
@@ -116,7 +116,6 @@ class ChunkEncoder(nn.Module):
     def __init__(self, options: CompressionOptions, emit_size: int, *,
                  with_checksums: bool = False, stored_payload_fields: bool = True):
         super().__init__()
-        check_slice(options)
         self.options = options
         self.with_checksums = with_checksums
         self.stored_payload_fields = stored_payload_fields
@@ -239,10 +238,15 @@ class ChunkEncoder(nn.Module):
             d_cand = torch.where(best_len >= cap, best_dist, 0)
             idx = torch.arange(N, device=dev)
             lim_n = (n_total[:, None] - idx).clamp(0, C.MAX_MATCH).int()
+            lr = dict(num_dom=opt.resolved_num_dom, num_seg=opt.resolved_dom_segs,
+                      sel=opt.resolved_lr_sel, harvest_stride=opt.resolved_lr_stride,
+                      pair=opt.resolved_lr_pair)
             for _ in range(opt.resolved_dom_iters):
-                g_len, g_dist = local_dominant_lengths(
-                    bufs, N, n_total, hstart, d_cand, num_dom=opt.resolved_num_dom,
-                    num_seg=opt.resolved_dom_segs, sel=opt.resolved_lr_sel)
+                if opt.lr_global:
+                    g_len, g_dist = global_dominant_lengths(
+                        bufs, N, n_total, hstart, d_cand, num_global=opt.lr_global, **lr)
+                else:
+                    g_len, g_dist = local_dominant_lengths(bufs, N, n_total, hstart, d_cand, **lr)
                 take = g_len > best_len
                 best_len = torch.where(take, g_len, best_len)
                 best_dist = torch.where(take, g_dist, best_dist)

@@ -14,9 +14,15 @@ longest run wins; the outputs are its run, its distance, and the XOR of word
 ``w`` under the distance that wins word ``w + 1``.
 
 This is exactly the word-space measurement of the JAX package's
-``longrange.local_dominant_lengths``; :func:`lr_measure_plain` is that
-computation in PyTorch, and :func:`lr_measure` runs the CUDA kernel
-(``csrc/lr_measure.cu``) on a CUDA tensor and the plain version on a CPU one.
+``longrange.local_dominant_lengths``, and at one segment holding the chunk's
+unioned distances (S = 1, M = D) that of ``global_dominant_lengths``;
+:func:`lr_measure_plain` is that computation in PyTorch, and
+:func:`lr_measure` runs the CUDA kernel (``csrc/lr_measure.cu``) on a CUDA
+tensor and the plain version on a CPU one.  The kernel has two paths, chosen
+from the geometry: one block a segment where the window fits a block's shared
+memory and the winner key has room for the slot (the presets' local pass),
+else the tiled path (the whole-chunk window of ``lr_global``, or more than
+64 slots).
 """
 
 from __future__ import annotations
@@ -36,8 +42,17 @@ _KERNEL = cuda.register("lr_measure", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # run, dist, xor_next
 ])
 
-MAX_SLOTS = 64  # dominants per segment the kernel's winner key has room for
+_TILED = cuda.register("lr_measure_tiled", [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,       # buf, buf_len, doms
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,             # B, S, M
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,          # L, LW, first-mismatch scratch
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # run, dist, xor_next
+])
+
+# The block path's limits; the tiled path takes anything beyond them.
+MAX_SLOTS = 64  # dominants per segment its winner key has room for
 MAX_WINDOW_WORDS = 5632  # words per segment a block's shared memory holds
+TILE_WORDS = 2048  # words of a tile of the tiled path (kTile)
 
 
 def window_words(N: int, S: int) -> int:
@@ -88,13 +103,19 @@ def lr_measure(buf: torch.Tensor, doms: torch.Tensor, N: int):
     B, S, M = doms.shape
     L = N // S
     LW = window_words(N, S)
-    if N % (4 * S) or LW > MAX_WINDOW_WORDS or M > MAX_SLOTS:
+    if N % (4 * S) or M < 1:
         raise ValueError(f"lr_measure: unsupported geometry N={N}, S={S}, M={M}")
     cuda.check_cuda(buf, "buf", torch.uint8, (B, buf.shape[1]))
     cuda.check_cuda(doms, "doms", torch.int32, (B, S, M))
     run = torch.empty((B, S, LW), dtype=torch.int32, device=buf.device)
     dist = torch.empty_like(run)
     xn = torch.empty((B, S, LW), dtype=torch.int64, device=buf.device)
-    _KERNEL(buf.device, buf.data_ptr(), buf.shape[1], doms.data_ptr(), B, S, M,
-            L, LW, run.data_ptr(), dist.data_ptr(), xn.data_ptr())
+    if LW <= MAX_WINDOW_WORDS and M <= MAX_SLOTS:
+        _KERNEL(buf.device, buf.data_ptr(), buf.shape[1], doms.data_ptr(), B, S, M,
+                L, LW, run.data_ptr(), dist.data_ptr(), xn.data_ptr())
+    else:
+        first = torch.empty((B, S, M, -(-LW // TILE_WORDS)), dtype=torch.int32,
+                            device=buf.device)
+        _TILED(buf.device, buf.data_ptr(), buf.shape[1], doms.data_ptr(), B, S, M, L, LW,
+               first.data_ptr(), run.data_ptr(), dist.data_ptr(), xn.data_ptr())
     return run, dist, xn

@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from .. import constants as C
-from ..compression_options import Compression, CompressionOptions, check_slice
+from ..compression_options import Compression, CompressionOptions
 from ..models import deflate as _deflate  # FULL_EMIT is read at call time
 from ..models.assembly import BitAssembler, splice_encoded_chunk
 from ..models.deflate import StreamResult, _resolve
@@ -315,7 +315,6 @@ def compress_corpus(
     chain budget is scaled with the chunk size, as in the JAX package.
     """
     options = _resolve(options or CompressionOptions.default())
-    check_slice(options)
     n = len(data)
     E = int(_deflate.FULL_EMIT if chunk_size is None else chunk_size)
     check_chunk_size(E)

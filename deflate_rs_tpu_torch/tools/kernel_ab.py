@@ -14,10 +14,11 @@ are the package's own.  Several directories (steps of a redesign) are timed
 in the order given, then the new sources, then all again in reverse.
 Operands:
 
-- ``lr_measure``: the Default encoder's inputs at 32 chunks of 64 KiB (64
-  segments), the ``high`` encoder's (32 segments), Default's in the 4 KiB
-  tier, one chunk alone, and two adversarial batches (every pattern mixed;
-  all-zero buffers, where every live dominant ties over the whole window);
+- ``lr_measure``: the Default encoder's inputs at 32 and 64 chunks of 64 KiB
+  (64 segments; 64 chunks is the corpus engine's batch), the ``high``
+  encoder's (32 segments), Default's in the 4 KiB tier, one chunk alone, and
+  two adversarial batches (every pattern mixed; all-zero buffers, where every
+  live dominant ties over the whole window), all on the block path;
 - ``quarter_hist``: Default's (nq 8), fast's (nq 1) and rle's (nq 4)
   inputs, one chunk alone at nq 8 and nq 1, and one symbol at every
   position at nq 1 and nq 8;
@@ -181,6 +182,13 @@ def main() -> int:
                     ChunkEncoder(o, emit).to(dev), torch.from_numpy(bufs).to(dev),
                     torch.from_numpy(hist), torch.from_numpy(ns), torch.from_numpy(last))
 
+    if "lr_measure" in chosen:  # and the corpus engine's batch, 64 chunks
+        bufs, hist, ns, last = chip_smoke.tier_buffers(mix, 65536, 64)
+        with torch.no_grad():
+            seen["default", "b64"] = chip_smoke.harvest(
+                ChunkEncoder(wanted["default"], 65536).to(dev), torch.from_numpy(bufs).to(dev),
+                torch.from_numpy(hist), torch.from_numpy(ns), torch.from_numpy(last))
+
     def to_dev(*arrays):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
 
@@ -188,6 +196,7 @@ def main() -> int:
     if "lr_measure" in chosen:
         lr_ops = {
             "default_s64": seen["default", 65536]["lr_measure"],
+            "default_s64_b64": seen["default", "b64"]["lr_measure"],
             "high_s32": seen["high", 65536]["lr_measure"],
             "default_4k_tier": seen["default", 4096]["lr_measure"],
         }

@@ -8,7 +8,9 @@ frequencies that force the length limit or touch the ``BIG`` clamp.
 ``lr_measure``: ties across every dominant, runs that cross every warp,
 mismatches on either side of a warp's 32 words and at the window's end,
 distances of every byte alignment, windows that reach before the buffer or
-past its end, dead, holed, duplicated and full dominant rows.
+past its end, dead, holed, duplicated and full dominant rows; and at the
+whole-chunk window of one segment (the tiled path), runs that cross tiles or
+go on to the window's end and equal long runs at two slots.
 ``quarter_hist``: one symbol everywhere, nothing in range, negatives, the
 bins' edges.  This module builds such operands with numpy from a seed, so
 that the CPU tests (against the JAX package and the plain twins) and the
@@ -323,6 +325,104 @@ LR_CASES = ([(1, S, N, seed) for S, N in ((64, 98304), (32, 98304), (64, 36864))
 # and 2,371 words).
 LR_CASES_WIDE = ([(1, 64, 294912, seed) for seed in range(len(LR_PATTERNS))]
                  + [(1, 32, 294912, 1), (1, 32, 163840, 4), (3, 64, 163840, 2)])
+
+
+# ---------------------------------------------- lr_measure, whole-chunk window
+# The lr_global pass measures the whole chunk as one segment (S = 1) at up to
+# D slots: the kernel's tiled path, tiles of LR_TILE words.
+
+LR_TILE = 2048  # words of a tile of the tiled path (csrc/lr_measure.cu, kTile)
+LR_GLOBAL_PATTERNS = LR_PATTERNS + ("cross", "ties", "before", "to_end")
+
+
+def lr_global_operands(pattern: str, rng, N: int, D: int):
+    """One chunk's ``(buf uint8[N + LR_PAD], doms int32[1, D])`` at S = 1 of
+    the named pattern, every slot live.  The patterns of ``LR_PATTERNS``
+    are built as :func:`lr_operands` builds segment 0; then:
+
+    - ``cross``: copies of 3 tiles and more that start just before a tile's
+      end, so a run crosses tiles and its carry decides its length;
+    - ``ties``: two regions of 300-700 random bytes, each repeated at a short
+      and a long distance (their sources a few tiles apart) and straddling a
+      tile's edge: equal runs above 258 bytes at two slots, the earlier slot
+      short in one region and long in the other, and the earlier must win;
+    - ``before``: 20,000 zero bytes at the start and distances up to 32,768,
+      so the words d bytes back lie before the buffer (and read as zero);
+    - ``to_end``: the last 30,000 bytes and the pad are zero, so runs at
+      short distances go on to the window's end (no mismatch after them)."""
+    T = 4 * LR_TILE  # bytes of a tile
+    n = N + LR_PAD
+    if pattern in LR_PATTERNS:
+        return lr_operands(pattern, rng, N, 1, D)
+    doms = rng.choice(np.arange(1, MAX_DIST + 1), (1, D), replace=False).astype(np.int32)
+    if pattern == "cross":
+        buf = _low_entropy(rng, n)
+        fixed = []
+        for k in range(1, N // T):
+            q = int(rng.integers(1, min(k * T - 600, MAX_DIST)))
+            at = k * T - int(rng.integers(1, 600))
+            ln = min(3 * T + 1000, N - at)
+            # A copy byte by byte: where it overlaps itself it repeats.
+            buf[at : at + ln] = buf[at - q + np.arange(ln) % q]
+            fixed.append(q)
+        _put(doms, 0, np.array(fixed, np.int32))
+    elif pattern == "ties":
+        buf = rng.integers(0, 256, n, dtype=np.uint8)
+        # (target start, (earlier slot's distance, later slot's distance))
+        regions = ((4 * T - 350, (3 * T + 1000, 1200)), (3 * T - 350, (700, 20000)))
+        for (p, pair) in regions:
+            R = int(rng.integers(300, 701))
+            x = rng.integers(0, 256, R, dtype=np.uint8)
+            for d in pair:
+                buf[p - d : p - d + R] = x
+            buf[p : p + R] = x
+            # The byte after the region differs from both copies' next byte.
+            others = {int(buf[p + R - d]) for d in pair}
+            buf[p + R] = next(v for v in range(256) if v not in others)
+        doms[0, :4] = [*regions[0][1], *regions[1][1]]
+    elif pattern == "before":
+        buf = _low_entropy(rng, n)
+        buf[:20000] = 0
+        _put(doms, 0, np.array([MAX_DIST, 30000, 20001, 19999, 8192, 4], np.int32))
+    elif pattern == "to_end":
+        buf = _low_entropy(rng, n)
+        buf[n - 30000 :] = 0
+        _put(doms, 0, np.array([1, 2, 3, 4, 300, 301, 20000], np.int32))
+    else:
+        raise ValueError(pattern)
+    return buf, doms
+
+
+def lr_global_batch(B: int, N: int, D: int, seed: int = 0):
+    """``(buf uint8[B, N + LR_PAD], doms int32[B, 1, D])``: row ``r`` has
+    pattern ``(r + seed) % 10`` of ``LR_GLOBAL_PATTERNS``; odd rows get dead
+    slots (two holes and a dead tail, as an lr_global union never has) and a
+    duplicated distance."""
+    rng = np.random.default_rng(9000 * seed + N + 5 * B + D)
+    bufs, doms = [], []
+    for r in range(B):
+        buf, d = lr_global_operands(
+            LR_GLOBAL_PATTERNS[(r + seed) % len(LR_GLOBAL_PATTERNS)], rng, N, D)
+        if r % 2:
+            d[0, 1] = 0
+            d[0, 3 * D // 4 :] = 0
+            d[0, D // 2] = 0
+            d[0, D // 2 + 1] = d[0, 0]
+        bufs.append(buf)
+        doms.append(d)
+    return np.stack(bufs), np.stack(doms)
+
+
+# (B, N, D, seed) at S = 1: every pattern at the 4 KiB tier's N (windows of
+# 9,283 words, 5 tiles) with D = 64 and 256, and at 64 KiB (24,643 words, 13
+# tiles) with D = 64; the new patterns at D = 256 there and at 256 KiB (73,795
+# words, 37 tiles) with D = 64; two batches with dead slots.
+LR_GLOBAL_CASES = ([(1, 36864, D, seed) for D in (64, 256)
+                    for seed in range(len(LR_GLOBAL_PATTERNS))]
+                   + [(1, 98304, 64, seed) for seed in range(len(LR_GLOBAL_PATTERNS))]
+                   + [(1, N, D, seed) for N, D in ((98304, 256), (294912, 64))
+                      for seed in range(len(LR_PATTERNS), len(LR_GLOBAL_PATTERNS))]
+                   + [(4, 98304, 64, 3), (3, 36864, 256, 6)])
 
 
 # ----------------------------------------------------------- quarter_hist

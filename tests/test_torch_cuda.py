@@ -159,6 +159,28 @@ def test_lr_measure_adversarial(dev, B, S, N, seed):
     _same(lr_kernel.lr_measure(buf, doms, N), lr_kernel.lr_measure_plain(buf, doms, N))
 
 
+@pytest.mark.parametrize("B,N,D,seed", kernel_cases.LR_GLOBAL_CASES)
+def test_lr_measure_global_adversarial(dev, B, N, D, seed):
+    """The tiled path at the whole-chunk window (S = 1) of the lr_global pass."""
+    buf, doms = (torch.from_numpy(a).to(dev) for a in kernel_cases.lr_global_batch(B, N, D, seed))
+    _same(lr_kernel.lr_measure(buf, doms, N), lr_kernel.lr_measure_plain(buf, doms, N))
+
+
+@pytest.mark.parametrize("N,S,M", [(4096, 1, 70), (4096, 2, 70), (98304, 32, 100),
+                                   (36864, 1, 3072)])
+def test_lr_measure_tiled_other_geometries(dev, N, S, M):
+    """The tiled path where the block path's key has no room (more than 64
+    slots) at windows that fit it, and the widest union of Default (64
+    segments x 48 dominants), rows unaligned."""
+    rng = np.random.default_rng(M + S)
+    rows = [kernel_cases.lr_operands(kernel_cases.LR_PATTERNS[i % 6], rng, N, S, M)
+            for i in range(3)]
+    bufs = np.concatenate([np.stack([r[0] for r in rows]), np.zeros((3, 1), np.uint8)], axis=1)
+    doms = np.stack([r[1] for r in rows])
+    buf, d = torch.from_numpy(bufs).to(dev), torch.from_numpy(doms).to(dev)
+    _same(lr_kernel.lr_measure(buf, d, N), lr_kernel.lr_measure_plain(buf, d, N))
+
+
 @pytest.mark.parametrize("shift", [1, 2, 3])
 def test_lr_measure_unaligned_rows(dev, shift):
     """Rows of an odd length: each starts at another byte alignment."""
@@ -204,13 +226,13 @@ def test_wrappers_refuse_unsupported_shapes(dev):
     with pytest.raises(ValueError):
         parse_scan.parse_scan(torch.ones((1, 4096 + 64), dtype=torch.int32, device=dev),
                               torch.ones(1, dtype=torch.int32, device=dev))
-    with pytest.raises(ValueError):  # a window of more words than a block's shared memory holds
+    with pytest.raises(ValueError):  # N not a multiple of 4 * S
         lr_kernel.lr_measure(torch.zeros((1, 32768 + 72), dtype=torch.uint8, device=dev),
-                             torch.ones((1, 1, 4), dtype=torch.int32, device=dev), 32768)
+                             torch.ones((1, 3, 4), dtype=torch.int32, device=dev), 32768)
     with pytest.raises(ValueError):
         pm_kernel.lengths_by_rank(torch.ones((1, 513), dtype=torch.int32, device=dev), 15)
-    with pytest.raises(ValueError):  # more slots than the winner key has room for
+    with pytest.raises(ValueError):  # no slot at all
         lr_kernel.lr_measure(torch.zeros((1, 4096 + 72), dtype=torch.uint8, device=dev),
-                             torch.ones((1, 8, 65), dtype=torch.int32, device=dev), 4096)
+                             torch.ones((1, 8, 0), dtype=torch.int32, device=dev), 4096)
     with pytest.raises(ValueError):
         pm_kernel.lengths_by_rank(torch.ones((1, 30), dtype=torch.int32, device=dev), 17)

@@ -80,47 +80,87 @@ def test_lr_measure_plain_equals_bytewise(B, S, N, seed):
             np.testing.assert_array_equal(g[0].numpy(), w)
 
 
+W, SPAN = 4, 128  # words a lane owns in a step; words of a step
+LANE = np.arange(32)
+
+
+class RowWords:
+    """Row ``b`` of ``bufs`` as the CUDA kernel reads it: the rows lie back
+    to back in memory and are read as aligned 32-bit words with the bytes
+    outside the row masked off (and words wholly outside not loaded)."""
+
+    def __init__(self, bufs: np.ndarray, b: int):
+        self.len = bufs.shape[1]
+        addr = b * self.len  # the row's address; memory starts 4-aligned
+        self.r = addr & 3
+        self.start = addr - self.r
+        self.mem = np.concatenate([bufs.reshape(-1), np.full(8, 0xEE, np.uint8)]).astype(np.int64)
+
+    def aligned_word(self, k):
+        k = np.asarray(k, np.int64)
+        lo = 4 * k - self.r
+        ok = (lo > -4) & (lo < self.len)
+        a = np.where(ok, self.start + 4 * k, 0)
+        m = self.mem
+        v = m[a] | (m[a + 1] << 8) | (m[a + 2] << 16) | (m[a + 3] << 24)
+        v = np.where(lo < 0, v & (0xFFFFFFFF << (8 * np.maximum(-lo, 0))) & 0xFFFFFFFF, v)
+        over = np.clip(lo + 4 - self.len, 0, 3)
+        return np.where(ok, v & (0xFFFFFFFF >> (8 * over)), 0)
+
+    def word_at(self, p):
+        q = np.asarray(p, np.int64) + self.r
+        return funnel(self.aligned_word(q >> 2), self.aligned_word((q >> 2) + 1), 8 * (q & 3))
+
+
+def funnel(lo, hi, sh):
+    return ((lo | (hi << 32)) >> sh) & 0xFFFFFFFF
+
+
+def low_bytes(x):
+    return (((x & 0xFF) == 0).astype(np.int64) + ((x & 0xFFFF) == 0)
+            + ((x & 0xFFFFFF) == 0) + (x == 0))
+
+
+def walk_model(row: RowWords, k0: int, sh: int, base, none: int, carry: int, steps: int,
+               update) -> None:
+    """One warp's walk (``walk`` in the kernel): from the last step to the
+    first, a lane on 4 neighbouring words; ``update(w, first)`` gets each
+    word's first mismatching byte at or after it, ``carry`` is the first
+    after the steps."""
+    above = np.where(LANE == 0, row.aligned_word(k0 + W * LANE + steps * SPAN), 0)
+    for c in range(steps - 1, -1, -1):
+        a = [row.aligned_word(k0 + W * LANE + c * SPAN + i) for i in range(W)]
+        a.append(np.where(LANE == 0, above, a[0])[(LANE + 1) & 31])
+        above = a[0]
+        w0 = c * SPAN + W * LANE
+        x = [base[w0 + i] ^ funnel(a[i], a[i + 1], sh) for i in range(W)]
+        own, later = [None] * W, np.full(32, 2**31 - 1, np.int64)
+        for i in range(W - 1, -1, -1):
+            later = np.where(x[i] != 0, 4 * (w0 + i) + low_bytes(x[i]), later)
+            own[i] = later
+        ballot = sum(1 << int(j) for j in LANE if any(int(x[i][j]) for i in range(W)))
+        rest = np.array([(ballot >> int(j)) >> 1 for j in LANE], np.int64)
+        ffs = np.array([(int(v) & -int(v)).bit_length() for v in rest])
+        theirs = own[0][(LANE + ffs) & 31]
+        after = np.minimum(np.where(rest != 0, theirs, carry), none)
+        for i in range(W):
+            first = np.minimum(own[i], after)
+            if i == 0:
+                carry = int(first[0])
+            update(w0 + i, first)
+
+
 def measure_walk_model(bufs: np.ndarray, b: int, doms: np.ndarray, N: int):
-    """Row ``b``'s (run, dist, xor_next) by the CUDA kernel's algorithm
-    (``csrc/lr_measure.cu``), modelled lane for lane in numpy: the rows of
-    ``bufs`` lie back to back in memory and are read as aligned 32-bit words
-    with the bytes outside the row masked off; a warp walks each live
-    dominant's window from its last step of 128 words to its first, a lane on
-    4 neighbouring words; winners are a maximum over run << 6 | (63 - slot)."""
+    """Row ``b``'s (run, dist, xor_next) by the CUDA kernel's block path
+    (``csrc/lr_measure.cu``), modelled lane for lane in numpy: a warp walks
+    each live dominant's window from its last step of 128 words to its
+    first; winners are a maximum over run << 6 | (63 - slot)."""
     S, M = doms.shape
     L = N // S
     LW = kernel_cases.lr_window_words(N, S)
-    W, SPAN = 4, 128
     steps = -(-LW // SPAN)
     padded = steps * SPAN
-    none = 4 * LW
-    row_len = bufs.shape[1]
-    addr = b * row_len  # the row's address; memory starts 4-aligned
-    r = addr & 3
-    mem = np.concatenate([bufs.reshape(-1), np.full(8, 0xEE, np.uint8)]).astype(np.int64)
-
-    def aligned_word(k):
-        k = np.asarray(k, np.int64)
-        lo = 4 * k - r
-        ok = (lo > -4) & (lo < row_len)
-        a = np.where(ok, addr - r + 4 * k, 0)
-        v = mem[a] | (mem[a + 1] << 8) | (mem[a + 2] << 16) | (mem[a + 3] << 24)
-        v = np.where(lo < 0, v & (0xFFFFFFFF << (8 * np.maximum(-lo, 0))) & 0xFFFFFFFF, v)
-        over = np.clip(lo + 4 - row_len, 0, 3)
-        return np.where(ok, v & (0xFFFFFFFF >> (8 * over)), 0)
-
-    def funnel(lo, hi, sh):
-        return ((lo | (hi << 32)) >> sh) & 0xFFFFFFFF
-
-    def word_at(p):
-        q = np.asarray(p, np.int64) + r
-        return funnel(aligned_word(q >> 2), aligned_word((q >> 2) + 1), 8 * (q & 3))
-
-    def low_bytes(x):
-        return (((x & 0xFF) == 0).astype(np.int64) + ((x & 0xFFFF) == 0)
-                + ((x & 0xFFFFFF) == 0) + (x == 0))
-
-    lane = np.arange(32)
+    row = RowWords(bufs, b)
     run = np.full((S, LW), -1, np.int64)
     dist = np.zeros((S, LW), np.int64)
     xn = np.zeros((S, LW), np.int64)
@@ -128,44 +168,102 @@ def measure_walk_model(bufs: np.ndarray, b: int, doms: np.ndarray, N: int):
         if not (doms[s] > 0).any():
             continue  # the block leaves at once
         pos0 = s * L
-        base = word_at(pos0 + 4 * np.arange(padded))
+        base = row.word_at(pos0 + 4 * np.arange(padded))
         best = np.full(padded, -1, np.int64)
         for m in range(M):
             d = int(doms[s, m])
             if d <= 0:
                 continue
-            q0 = pos0 - d + r
-            k0, sh, slot = q0 >> 2, 8 * (q0 & 3), 63 - m
-            carry = none
-            above = np.where(lane == 0, aligned_word(k0 + W * lane + steps * SPAN), 0)
-            for c in range(steps - 1, -1, -1):
-                a = [aligned_word(k0 + W * lane + c * SPAN + i) for i in range(W)]
-                a.append(np.where(lane == 0, above, a[0])[(lane + 1) & 31])
-                above = a[0]
-                w0 = c * SPAN + W * lane
-                x = [base[w0 + i] ^ funnel(a[i], a[i + 1], sh) for i in range(W)]
-                own, later = [None] * W, np.full(32, 2**31 - 1, np.int64)
-                for i in range(W - 1, -1, -1):
-                    later = np.where(x[i] != 0, 4 * (w0 + i) + low_bytes(x[i]), later)
-                    own[i] = later
-                ballot = sum(1 << int(j) for j in lane if any(int(x[i][j]) for i in range(W)))
-                rest = np.array([(ballot >> int(j)) >> 1 for j in lane], np.int64)
-                ffs = np.array([(int(v) & -int(v)).bit_length() for v in rest])
-                theirs = own[0][(lane + ffs) & 31]
-                after = np.minimum(np.where(rest != 0, theirs, carry), none)
-                for i in range(W):
-                    first = np.minimum(own[i], after)
-                    if i == 0:
-                        carry = int(first[0])
-                    key = (first << 6) + slot - ((w0 + i) << 8)
-                    best[w0 + i] = np.maximum(best[w0 + i], key)
+            q0 = pos0 - d + row.r
+
+            def update(w, first, slot=63 - m):
+                best[w] = np.maximum(best[w], ((first - 4 * w) << 6) + slot)
+
+            walk_model(row, q0 >> 2, 8 * (q0 & 3), base, 4 * LW, 4 * LW, steps, update)
         key = best[:LW]
         won = key >= 0
         run[s] = np.where(won, key >> 6, -1)
         dist[s] = np.where(won, doms[s][np.minimum(63 - (key & 63), M - 1)], 0)
         nxt = np.append(key[1:], -1)
         dn = doms[s][np.minimum(63 - (nxt & 63), M - 1)]
-        xn[s] = np.where(nxt >= 0, base[:LW] ^ word_at(pos0 + 4 * np.arange(LW) - dn), 0)
+        xn[s] = np.where(nxt >= 0, base[:LW] ^ row.word_at(pos0 + 4 * np.arange(LW) - dn), 0)
+    return run, dist, xn
+
+
+def measure_tiled_model(bufs: np.ndarray, b: int, doms: np.ndarray, N: int, tile: int):
+    """Row ``b``'s (run, dist, xor_next) by the kernel's tiled path, the two
+    passes modelled lane for lane with tiles of ``tile`` words (the kernel's
+    is ``kernel_cases.LR_TILE``).  Pass 1: per tile after the first and live
+    slot, the first mismatching window byte of the tile, from a forward scan
+    that stops at the first step with one.  Pass 2: per tile and live slot,
+    the carry is the least of those over the later tiles, and the walk
+    starts from it; winners are a maximum over run << 32 | ~slot (0 = none),
+    and the next tile's first word gets its key from the carry."""
+    S, M = doms.shape
+    L = N // S
+    LW = kernel_cases.lr_window_words(N, S)
+    tiles = -(-LW // tile)
+    row = RowWords(bufs, b)
+    run = np.full((S, LW), -1, np.int64)
+    dist = np.zeros((S, LW), np.int64)
+    xn = np.zeros((S, LW), np.int64)
+    for s in range(S):
+        if not (doms[s] > 0).any():
+            continue
+        first_of = np.full((M, tiles), -7, np.int64)  # pass 1's scratch
+        for t in range(1, tiles):
+            tw0, nw = t * tile, min(tile, LW - t * tile)
+            pos0 = s * L + 4 * tw0
+            base = row.word_at(pos0 + 4 * np.arange(nw))
+            for m in range(M):
+                d = int(doms[s, m])
+                if d <= 0:
+                    continue
+                q0 = pos0 - d + row.r
+                k0, sh = q0 >> 2, 8 * (q0 & 3)
+                found = 4 * LW
+                for w0 in range(0, nw, SPAN):
+                    w = w0 + W * LANE
+                    a = [row.aligned_word(k0 + w + i) for i in range(W + 1)]
+                    own = np.full(32, 2**31 - 1, np.int64)
+                    for i in range(W - 1, -1, -1):
+                        ok = w + i < nw
+                        x = np.where(ok, base[np.minimum(w + i, nw - 1)], 0) ^ funnel(
+                            a[i], a[i + 1], sh)
+                        own = np.where(ok & (x != 0), 4 * (w + i) + low_bytes(x), own)
+                    hit = np.nonzero(own != 2**31 - 1)[0]
+                    if len(hit):
+                        found = 4 * tw0 + int(own[hit[0]])
+                        break
+                first_of[m, t] = found
+        for t in range(tiles):
+            tw0, nw = t * tile, min(tile, LW - t * tile)
+            steps = -(-nw // SPAN)
+            pos0 = s * L + 4 * tw0
+            base = row.word_at(pos0 + 4 * np.arange(steps * SPAN))
+            best = np.zeros(tile + 1, np.int64)
+            for m in range(M):
+                d = int(doms[s, m])
+                if d <= 0:
+                    continue
+                carry = min([4 * LW] + [int(first_of[m, u]) for u in range(t + 1, tiles)]) - 4 * tw0
+
+                def update(w, first, tag=0xFFFFFFFF - m):
+                    best[w] = np.maximum(best[w], ((first - 4 * w) << 32) | tag)
+
+                if t + 1 < tiles:
+                    update(np.array([tile]), np.array([carry]))
+                q0 = pos0 - d + row.r
+                walk_model(row, q0 >> 2, 8 * (q0 & 3), base, 4 * (LW - tw0), carry, steps,
+                           update)
+            key = best[:nw]
+            nxt = np.where(tw0 + np.arange(nw) + 1 < LW, best[1 : nw + 1], 0)
+            slot = 0xFFFFFFFF - (key & 0xFFFFFFFF)
+            nslot = 0xFFFFFFFF - (nxt & 0xFFFFFFFF)
+            run[s, tw0 : tw0 + nw] = np.where(key > 0, key >> 32, -1)
+            dist[s, tw0 : tw0 + nw] = np.where(key > 0, doms[s][np.minimum(slot, M - 1)], 0)
+            xw = base[:nw] ^ row.word_at(pos0 + 4 * np.arange(nw) - doms[s][np.minimum(nslot, M - 1)])
+            xn[s, tw0 : tw0 + nw] = np.where(nxt > 0, xw, 0)
     return run, dist, xn
 
 
@@ -201,6 +299,73 @@ def test_lr_walk_model_equals_plain_at_preset_shapes(S, N):
         want = lr_kernel.lr_measure_plain(torch.from_numpy(bufs), torch.from_numpy(few[None]), N)
         for g, w in zip(measure_walk_model(bufs, 0, few, N), want):
             np.testing.assert_array_equal(g, w[0].numpy())
+
+
+@pytest.mark.parametrize("B,N,D,seed", kernel_cases.LR_GLOBAL_CASES)
+def test_lr_global_plain_equals_bytewise(B, N, D, seed):
+    """The whole-chunk window (S = 1, the lr_global pass's geometry) at the
+    three tiers, every slot live at D = 64 and 256, and rows with dead slots."""
+    bufs, doms = kernel_cases.lr_global_batch(B, N, D, seed)
+    assert bufs.shape == (B, N + kernel_cases.LR_PAD) and doms.shape == (B, 1, D)
+    for i in range(B):
+        got = lr_kernel.lr_measure(torch.from_numpy(bufs[i : i + 1]),
+                                   torch.from_numpy(doms[i : i + 1]), N)
+        want = measure_bytewise(bufs[i], doms[i], N)
+        assert int((want[0] >= 0).sum()) > 0
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[0].numpy(), w)
+
+
+def test_lr_global_ties_go_to_the_first_slot():
+    """In the ``ties`` pattern two slots match the same region alike for more
+    than 258 bytes, across a tile's edge; the earlier slot wins, whether its
+    distance is the longer or the shorter."""
+    T = 4 * kernel_cases.LR_TILE
+    for N in (36864, 98304):
+        bufs, doms = kernel_cases.lr_global_batch(1, N, 64, 7)
+        assert kernel_cases.LR_GLOBAL_PATTERNS[7] == "ties"
+        run, dist, _ = lr_kernel.lr_measure_plain(torch.from_numpy(bufs),
+                                                  torch.from_numpy(doms), N)
+        for p, slot in ((4 * T - 350, 0), (3 * T - 350, 2)):
+            w = (p + 3) // 4
+            assert w // kernel_cases.LR_TILE != (w + int(run[0, 0, w]) // 4) // kernel_cases.LR_TILE
+            assert int(run[0, 0, w]) > 258
+            assert int(dist[0, 0, w]) == int(doms[0, 0, slot])
+
+
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("seed", range(len(kernel_cases.LR_PATTERNS)))
+def test_lr_tiled_model_equals_plain(seed, S):
+    """The tiled path's two passes, modelled on the CPU with tiles of 256
+    words (5 tiles at S = 1, 3 a segment at S = 2) and 70 slots (more than
+    the block path's key holds), against the plain twin; three rows, each
+    with another byte alignment."""
+    N, M = 4096, 70
+    rng = np.random.default_rng(40 + seed)
+    rows = [kernel_cases.lr_operands(kernel_cases.LR_PATTERNS[(i + seed) % 6], rng, N, S, M)
+            for i in range(3)]
+    bufs = np.stack([r[0] for r in rows])
+    doms = np.stack([r[1] for r in rows])
+    bufs = np.concatenate([bufs, rng.integers(1, 255, (3, seed % 4), dtype=np.uint8)], axis=1)
+    want = lr_kernel.lr_measure_plain(torch.from_numpy(bufs), torch.from_numpy(doms), N)
+    for b in range(3):
+        for g, w in zip(measure_tiled_model(bufs, b, doms[b], N, 256), want):
+            np.testing.assert_array_equal(g, w[b].numpy())
+
+
+@pytest.mark.parametrize("pattern", kernel_cases.LR_GLOBAL_PATTERNS[len(kernel_cases.LR_PATTERNS):])
+def test_lr_tiled_model_equals_plain_at_kernel_tile(pattern):
+    """The whole-chunk patterns at the 4 KiB tier's window (9,283 words) and
+    the kernel's own tile (2,048 words): the first eight slots of each row,
+    which hold the pattern's distances."""
+    N = 36864
+    bufs, doms = kernel_cases.lr_global_batch(
+        1, N, 64, kernel_cases.LR_GLOBAL_PATTERNS.index(pattern))
+    few = np.ascontiguousarray(doms[0, :, :8])
+    want = lr_kernel.lr_measure_plain(torch.from_numpy(bufs), torch.from_numpy(few[None]), N)
+    assert int((want[0] > 258).sum()) > 0
+    for g, w in zip(measure_tiled_model(bufs, 0, few, N, kernel_cases.LR_TILE), want):
+        np.testing.assert_array_equal(g, w[0].numpy())
 
 
 def _local_lengths_both(buf, doms, N, S, M, sel):

@@ -1,6 +1,6 @@
 """The PyTorch port's constants, options and split tables against the JAX
-package, its import isolation from jax, its scope guard, and every preset
-and force mode at the 4 KiB tier against JAX."""
+package, its import isolation from jax, and every preset, force mode and
+long-range knob at the 4 KiB tier against JAX."""
 
 import dataclasses
 import os
@@ -137,10 +137,15 @@ def test_force_modes_raise(special):
 
 @pytest.mark.parametrize("knob", [{"lr_global": 64}, {"lr_stride": 2}])
 def test_unported_long_range_knobs_raise(knob):
+    """The scope guard once refused the two long-range knobs.  Each now runs
+    and equals JAX at Default in the 4 KiB tier (on text and on records
+    whose claims hit the probe cap); on fast, which runs no long-range pass,
+    the knob is inert."""
     import deflate_rs_tpu_torch as dt
+    from torch_knob_data import records
 
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        dt.deflate_bytes_conf(b"hello hello hello", TOpts(**knob), device="cpu")
-    # The knobs are inert where the long-range pass does not run (fast).
-    dt.deflate_bytes_conf(b"hello hello hello", dataclasses.replace(TOpts.fast(), **knob),
-                          device="cpu")
+    for data in (b"hello hello hello", _pg11_4k(), records(4096, seed=3)):
+        _equal_jax(data, TOpts(**knob), JOpts(**knob))
+    fast = dataclasses.replace(TOpts.fast(), **knob)
+    assert (dt.deflate_bytes_conf(b"hello hello hello", fast, device="cpu")
+            == dt.deflate_bytes_conf(b"hello hello hello", TOpts.fast(), device="cpu"))
