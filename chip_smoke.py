@@ -87,7 +87,11 @@ Phases (each prints a line; any failure exits non-zero):
    ``assemble_local``) equal ``compress_corpus(packed=False)``'s, the
    checksum partials combine to zlib's; MB/s of three warm runs (step plus
    packed splice) beside three of the corpus engine; every kernel's launch
-   counter must move during a timed run.  Then
+   counter must move during a timed run.  In the same process group,
+   ``tools/sharded_overhead.py``: ms per chunk of a trivial op, the plain
+   encoder without and with checksums and the sharded step, in turns, at 16
+   and 64 chunks of the mix, with the step's words equal to the plain
+   encoder's (printed as ``overhead:`` lines).  Then
    ``tools.dryrun_multichip.dryrun_multichip`` spawns one rank a card.
 11. knobs: the long-range knobs on Default and high, each with
    ``lr_global=64``, ``lr_global=256`` and ``lr_stride=2``, on pg11 and the
@@ -107,6 +111,23 @@ Phases (each prints a line; any failure exits non-zero):
    short), in steps of 32 chunks: the byte-aligned stream round-trips through
    zlib, the combined checksums equal zlib's, the packed splice equals the
    one-shot bytes; MB/s and bytes fetched.
+13. stages: ``tools/stage_timing.py`` for Default, fast and high at 64
+   chunks of the mix and Default at one chunk: each stage of
+   ``ChunkEncoder.forward`` on the real outputs of the stages before it, its
+   wall time, its busy time under ``torch.profiler``, its kernels and its
+   three longest kernels, then the whole ``forward``.  The stages' kernels
+   must sum to the ``forward``'s within 1 % and their busy time to its own
+   within 10 %; every kernel's launch counter must move.  Each run's rows
+   are printed whole on a ``STAGE_ROWS`` line.
+14. fuzz: ``tools/fuzz.py`` at seed 0, 200 mutants at Default and fast
+   (10 inputs held to the CPU port's bytes) and 50 at high, rle and
+   huffman_only (5 held), each input round-tripping through ``zlib`` and the
+   port's ``inflate``, every 8th multi-chunk one through ``compress_corpus``
+   too; structures before and after; any failure fails the run; every
+   kernel's launch counter must move.
+15. margins: ``tools/contract_margins.py`` at 128 KiB for Default and high
+   (CUDA bytes equal the CPU port's and round-trip) and at 512 and 1,024 KiB
+   (round trips); every class's margin under the contract's ceiling.
 
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
@@ -132,26 +153,9 @@ import time
 import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-MIX_BYTES = 16 << 20
 BATCH = 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12 / 4  # see the module docstring
-
-
-def build_mix(total_bytes: int, text: bytes):
-    """pg11 text, structured records, random bytes and runs, seeded."""
-    import numpy as np
-
-    rng = np.random.default_rng(1234)
-    rec = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
-    structured = b"".join(
-        rec[:48] + int(i).to_bytes(8, "little") + rng.integers(0, 256, 8, dtype=np.uint8).tobytes()
-        for i in range(4096)
-    )
-    rand = rng.integers(0, 256, 1 << 20, dtype=np.uint8).tobytes()
-    runs = (b"\x00" * 4096 + b"\xff" * 2048 + b"ab" * 1024) * 64
-    unit = text * 8 + structured * 2 + rand + runs
-    return (unit * (total_bytes // len(unit) + 1))[:total_bytes]
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -523,8 +527,26 @@ def decode_phase(dt, cuda, pg11: bytes, head: bytes, presets: dict) -> dict:
     return counts
 
 
+def overhead_phase(mix: bytes, smi: str) -> None:
+    """``tools/sharded_overhead.py`` in the sharded phase's process group (NCCL,
+    world size 1): ms per chunk of a trivial op, the plain encoder without and
+    with checksums and the sharded step, in turns, at 16 and 64 chunks; the
+    step's words must equal the plain encoder's."""
+    from deflate_rs_tpu_torch.tools.sharded_overhead import overhead
+
+    for batch in (16, 64):
+        r = overhead(batch, 65536, iters=8, data=mix, card=smi)
+        ms = r["ms_per_chunk"]
+        print(f"overhead: B={batch}: ms per chunk (median of {r['iters']} rounds in turns): floor "
+              f"{ms['floor']:.4f}, plain {ms['plain']:.4f}, plain with checksums "
+              f"{ms['plain_checksums']:.4f}, sharded step {ms['sharded']:.4f}; overhead "
+              f"{r['overhead_ms_per_chunk']:.4f} ms per chunk = {100 * r['overhead']:.1f} % of "
+              f"the floor-corrected plain time; words == plain encoder's")
+        print("OVERHEAD_ROW " + json.dumps(r))
+
+
 def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes,
-                  wall_of) -> dict:
+                  wall_of, smi: str) -> dict:
     """The sharded encoder over NCCL at world size 1 (in this process, so the
     launch counters see it) on the mix, then the dry run over every card.
     Returns the kernels' launches during one timed sharded run."""
@@ -593,6 +615,7 @@ def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes
               f"engine in this process {[round(r, 2) for r in corpus_rates]} MB/s; fetched "
               f"{fetched} B ({int(np.sum(shard['btype'] == 0))} stored chunks fetch no words); "
               f"launches of one run {counts}")
+        overhead_phase(mix, smi)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -777,6 +800,91 @@ def soak_phase() -> None:
           f"{s['block_types']}; {time.perf_counter() - t0:.1f} s with the spawn and the checks")
 
 
+STAGE_RUNS = (("default", 64), ("fast", 64), ("high", 64), ("default", 1))
+
+
+def stages_phase(cuda, mix: bytes, smi: str) -> dict:
+    """``tools/stage_timing.py`` on the card: the stages of
+    ``ChunkEncoder.forward`` one by one on the mix's first chunks, at the
+    presets and batches of ``STAGE_RUNS``.  The stages' kernels must sum to
+    the whole ``forward``'s within 1 %, and their busy time to its own within
+    10 %.  Returns the launches of the phase (every kernel must move)."""
+    from deflate_rs_tpu_torch.tools.stage_timing import stage_rows
+
+    cuda.reset_launches()
+    for preset, batch in STAGE_RUNS:
+        rows = stage_rows(preset, batch, 65536, device="cuda", reps=3, data=mix, card=smi)
+        whole = rows[-1]
+        summed = whole["sum_of_stages"]
+        for r in rows[:-1]:
+            if not r["runs"]:
+                print(f"stages: {preset} B={batch} {r['stage']}: does not run at this preset")
+                continue
+            print(f"stages: {preset} B={batch} {r['stage']}: wall {r['wall_ms']:.3f} ms, busy "
+                  f"{r['busy_ms']:.3f} ms, {r['kernels']} kernels, {r['copies']} copies; top "
+                  f"{r['top']}")
+        print(f"stages: {preset} B={batch} forward: wall {whole['wall_ms']:.3f} ms, busy "
+              f"{whole['busy_ms']:.3f} ms, {whole['kernels']} kernels, {whole['copies']} copies; "
+              f"the stages sum to wall {summed['wall_ms']:.3f} ms, busy {summed['busy_ms']:.3f} "
+              f"ms, {summed['kernels']} kernels")
+        if abs(summed["kernels"] - whole["kernels"]) > 0.01 * whole["kernels"]:
+            raise SystemExit(f"stages: {preset} B={batch}: the stages launch {summed['kernels']} "
+                             f"kernels, forward {whole['kernels']}: more than 1 % apart")
+        if abs(summed["busy_ms"] - whole["busy_ms"]) > 0.1 * whole["busy_ms"]:
+            raise SystemExit(f"stages: {preset} B={batch}: the stages' busy time "
+                             f"{summed['busy_ms']:.3f} ms is more than 10 % from forward's "
+                             f"{whole['busy_ms']:.3f} ms")
+        print("STAGE_ROWS " + json.dumps(rows))
+    counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+    check_launches("stages", counts)
+    print(f"stages: launches of the phase {counts}")
+    return counts
+
+
+FUZZ_RUNS = (("default,fast", 200, 10), ("high,rle,huffman_only", 50, 5))
+
+
+def fuzz_phase(cuda) -> dict:
+    """``tools/fuzz.py`` on the card at seed 0: ``FUZZ_RUNS`` gives the
+    presets, the iterations and the inputs held to the CPU port's bytes.
+    Any failure fails the phase.  Returns the launches of the phase."""
+    from deflate_rs_tpu_torch.tools.fuzz import OUT, fuzz
+
+    cuda.reset_launches()
+    for presets, iters, compare in FUZZ_RUNS:
+        s = fuzz(iters, seed=0, presets=presets, device="cuda", compare_cpu=compare,
+                 log=lambda m, p=presets: print(f"fuzz: {p}: {m}", flush=True))
+        print(f"fuzz: {presets}: {s['seeds']} seeds + {s['iters']} mutants, corpus grew to "
+              f"{s['corpus']}, structures {s['structures_seeded']} -> {s['structures']}, "
+              f"{s['compared_with_cpu']} inputs == CPU port bytes, {s['corpus_checks']} "
+              f"compress_corpus round trips, failures {len(s['failures'])}, {s['seconds']:.1f} s")
+        if s["failures"] or s["compared_with_cpu"] < compare:
+            raise SystemExit(f"fuzz: {presets}: failures {s['failures']} (inputs in {OUT}); "
+                             f"compared with the CPU port {s['compared_with_cpu']} of {compare}")
+    counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+    check_launches("fuzz", counts)
+    print(f"fuzz: launches of the phase {counts}")
+    return counts
+
+
+def margins_phase() -> None:
+    """``tools/contract_margins.py`` on the card: at 128 KiB, Default and
+    high, the bytes equal the CPU port's and round-trip; at 512 and 1,024 KiB
+    they round-trip.  Prints every margin."""
+    from deflate_rs_tpu_torch.tools.contract_margins import margin_rows
+
+    t0 = time.perf_counter()
+    for sizes, compare in (([128], [128]), ([512, 1024], [])):
+        rows, skipped = margin_rows(sizes, device="cuda", compare_cpu=compare,
+                                    log=lambda m: print(f"margins: {m}", flush=True))
+        if compare and not all(r["equals_cpu"] for r in rows):
+            raise SystemExit("margins: a stream was not held to the CPU port's bytes")
+        print(f"margins: {sizes} KiB: {len(rows)} streams round-trip"
+              + (", CUDA bytes == CPU port bytes" if compare else "")
+              + f"; classes skipped (no files on this machine): {skipped or 'none'}")
+    print(f"margins: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -793,6 +901,7 @@ def main() -> int:
     from deflate_rs_tpu_torch.runtime import cuda
     from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch, dryrun_data
     from deflate_rs_tpu_torch.utils import kernel_cases
+    from deflate_rs_tpu_torch.utils.mix import MIX_BYTES, build_mix
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1265,7 +1374,7 @@ def main() -> int:
     print(f"decode: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------------ sharded
-    launches["sharded"] = sharded_phase(dt, cuda, mix, new.deflate, unpacked, wall_of)
+    launches["sharded"] = sharded_phase(dt, cuda, mix, new.deflate, unpacked, wall_of, smi)
     print(f"sharded: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -------------------------------------------------------------- knobs
@@ -1275,6 +1384,18 @@ def main() -> int:
     # --------------------------------------------------------------- soak
     soak_phase()
     print(f"soak: phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------------------------------------------- stages
+    launches["stages"] = stages_phase(cuda, mix, smi)
+    print(f"stages: phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # --------------------------------------------------------------- fuzz
+    launches["fuzz"] = fuzz_phase(cuda)
+    print(f"fuzz: phase done at {time.perf_counter() - t_start:.1f} s")
+
+    # ------------------------------------------------------------ margins
+    margins_phase()
+    print(f"margins: phase done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "lr_measure": ("deflate_rs_tpu_torch/csrc/lr_measure.cu", "deflate_rs_tpu/ops/lr_kernel.py:84",

@@ -201,6 +201,14 @@ class ChunkEncoder(nn.Module):
                 "bits": bits, "sym": rle["sym"], "n": rle["n"],
                 "extra_bits": rle["extra_bits"], "extra_vals": rle["extra_vals"]}
 
+    # The stages of ``forward``, in order.  Each is a method of that name that
+    # takes the state the stages before it left (a dict of tensors, the
+    # dynamic-header pieces as a dict of their own) and returns it with its
+    # own outputs added, so a caller can run one stage alone on the real
+    # outputs of the stages before it (``tools/stage_timing.py`` does).
+    STAGES = ("lz77", "long_range", "parse", "symbols", "histograms", "scoring", "tables",
+              "fields", "pack", "checksums")
+
     def forward(self, bufs: torch.Tensor, hist_len: torch.Tensor, n: torch.Tensor,
                 is_last: torch.Tensor) -> dict:
         """Encode ``bufs`` uint8[B, HALO + E + PAD] (history ending at HALO,
@@ -209,18 +217,33 @@ class ChunkEncoder(nn.Module):
         leading batch axis: ``words`` (int64 holding uint32), ``total_bits``,
         ``data_bits``, ``btype``, ``ntokens``, and with ``with_checksums``
         ``s1``, ``s2``, ``crc_raw``."""
-        opt = self.options
-        E, N, sc = self.E, self.N, self.sc
-        nq = sc.nq
-        QL = E // nq
-        B = bufs.shape[0]
-        dev = bufs.device
-        n = n.to(dev).long()
-        is_last = is_last.to(dev).bool()
-        n_total = HALO + n
-        hstart = HALO - hist_len.to(dev).long()
+        state = self.inputs(bufs, hist_len, n, is_last)
+        for name in self.STAGES:
+            state = getattr(self, name)(state)
+        return self.outputs(state)
 
-        # ------------------------------------------------------------ LZ77
+    @staticmethod
+    def inputs(bufs, hist_len, n, is_last) -> dict:
+        """The state before the first stage: ``forward``'s arguments."""
+        return {"bufs": bufs, "hist_len": hist_len, "n": n, "is_last": is_last}
+
+    def outputs(self, state: dict) -> dict:
+        """``forward``'s result out of the state after the last stage."""
+        keys = ("words", "total_bits", "data_bits", "btype", "ntokens")
+        if self.with_checksums:
+            keys += ("s1", "s2", "crc_raw")
+        return {k: state[k] for k in keys}
+
+    def lz77(self, s: dict) -> dict:
+        """The inputs on the device, then the matcher's best match per
+        position (suffix sort, hash chains, distance-1 runs or none)."""
+        opt, N = self.options, self.N
+        bufs = s["bufs"]
+        B, dev = bufs.shape[0], bufs.device
+        n = s["n"].to(dev).long()
+        is_last = s["is_last"].to(dev).bool()
+        n_total = HALO + n
+        hstart = HALO - s["hist_len"].to(dev).long()
         mode = opt.matcher_mode
         if mode == "rle":
             best_len, best_dist = find_rle_matches(bufs, n_total, hstart, N)
@@ -233,66 +256,90 @@ class ChunkEncoder(nn.Module):
         else:
             best_len, best_dist = find_matches_hash(
                 bufs, N, n_total, hstart, opt.num_candidates, opt.probe_words)
-        if mode == "hash" and opt.use_long_range:
-            cap = 4 * opt.probe_words
+        return {**s, "n": n, "is_last": is_last, "n_total": n_total, "hstart": hstart,
+                "best_len": best_len, "best_dist": best_dist}
+
+    def long_range(self, s: dict) -> dict:
+        """The hash matcher's long-range rounds (lr_measure kernel), then
+        chain and stride extension; nothing for the other matchers."""
+        opt, N = self.options, self.N
+        if not (opt.matcher_mode == "hash" and opt.use_long_range):
+            return s
+        bufs, n_total, hstart = s["bufs"], s["n_total"], s["hstart"]
+        best_len, best_dist = s["best_len"], s["best_dist"]
+        cap = 4 * opt.probe_words
+        d_cand = torch.where(best_len >= cap, best_dist, 0)
+        idx = torch.arange(N, device=bufs.device)
+        lim_n = (n_total[:, None] - idx).clamp(0, C.MAX_MATCH).int()
+        lr = dict(num_dom=opt.resolved_num_dom, num_seg=opt.resolved_dom_segs,
+                  sel=opt.resolved_lr_sel, harvest_stride=opt.resolved_lr_stride,
+                  pair=opt.resolved_lr_pair)
+        for _ in range(opt.resolved_dom_iters):
+            if opt.lr_global:
+                g_len, g_dist = global_dominant_lengths(
+                    bufs, N, n_total, hstart, d_cand, num_global=opt.lr_global, **lr)
+            else:
+                g_len, g_dist = local_dominant_lengths(bufs, N, n_total, hstart, d_cand, **lr)
+            take = g_len > best_len
+            best_len = torch.where(take, g_len, best_len)
+            best_dist = torch.where(take, g_dist, best_dist)
             d_cand = torch.where(best_len >= cap, best_dist, 0)
-            idx = torch.arange(N, device=dev)
-            lim_n = (n_total[:, None] - idx).clamp(0, C.MAX_MATCH).int()
-            lr = dict(num_dom=opt.resolved_num_dom, num_seg=opt.resolved_dom_segs,
-                      sel=opt.resolved_lr_sel, harvest_stride=opt.resolved_lr_stride,
-                      pair=opt.resolved_lr_pair)
-            for _ in range(opt.resolved_dom_iters):
-                if opt.lr_global:
-                    g_len, g_dist = global_dominant_lengths(
-                        bufs, N, n_total, hstart, d_cand, num_global=opt.lr_global, **lr)
-                else:
-                    g_len, g_dist = local_dominant_lengths(bufs, N, n_total, hstart, d_cand, **lr)
-                take = g_len > best_len
-                best_len = torch.where(take, g_len, best_len)
-                best_dist = torch.where(take, g_dist, best_dist)
-                d_cand = torch.where(best_len >= cap, best_dist, 0)
-            best_len = stride_extend(
-                chain_extend(best_len, best_dist, lim_n, N), best_dist, lim_n)
-            ok3 = best_len >= C.MIN_MATCH
-            best_len = torch.where(ok3, best_len, 0)
-            best_dist = torch.where(ok3, best_dist, 0)
+        best_len = stride_extend(
+            chain_extend(best_len, best_dist, lim_n, N), best_dist, lim_n)
+        ok3 = best_len >= C.MIN_MATCH
+        return {**s, "best_len": torch.where(ok3, best_len, 0),
+                "best_dist": torch.where(ok3, best_dist, 0)}
 
-        # ----------------------------------------------------------- parse
+    def parse(self, s: dict) -> dict:
+        """Lazy jump steps, then the token starts (parse_scan kernel)."""
+        opt = self.options
         steps = build_jumps(
-            best_len[:, HALO:], best_dist[:, HALO:], lazy=opt.lazy,
+            s["best_len"][:, HALO:], s["best_dist"][:, HALO:], lazy=opt.lazy,
             lazy_if_less_than=min(opt.lazy_if_less_than, 258) if opt.lazy else 0)
-        tvalid = parse_scan(steps.contiguous(), n.int())
-        count = tvalid.sum(dim=1)
+        tvalid = parse_scan(steps.contiguous(), s["n"].int())
+        return {**s, "steps": steps, "tvalid": tvalid, "ntokens": tvalid.sum(dim=1)}
 
-        # ------------------------------------------------- token symbols
-        length = steps.long()
+    def symbols(self, s: dict) -> dict:
+        """Each position's litlen and distance symbols and extra bits."""
+        E = self.E
+        length = s["steps"].long()
         is_match = length >= C.MIN_MATCH
-        dist = torch.where(is_match, best_dist[:, HALO:].long(), 0)
-        lit = bufs[:, HALO : HALO + E].long()
+        dist = torch.where(is_match, s["best_dist"][:, HALO:].long(), 0)
+        lit = s["bufs"][:, HALO : HALO + E].long()
         lcode, len_extra_n, len_extra_v = length_code(length.clamp(C.MIN_MATCH, C.MAX_MATCH))
-        len_extra_n = torch.where(is_match, len_extra_n, 0)
-        len_extra_v = torch.where(is_match, len_extra_v, 0)
-        lsym = torch.where(is_match, 257 + lcode, lit)
         dcode, dist_extra_n, dist_extra_v = dist_code(dist.clamp(1, C.WINDOW_SIZE))
-        dcode = torch.where(is_match, dcode, 0)
-        dist_extra_n = torch.where(is_match, dist_extra_n, 0)
-        dist_extra_v = torch.where(is_match, dist_extra_v, 0)
+        return {**s, "is_match": is_match,
+                "lsym": torch.where(is_match, 257 + lcode, lit),
+                "len_extra_n": torch.where(is_match, len_extra_n, 0),
+                "len_extra_v": torch.where(is_match, len_extra_v, 0),
+                "dcode": torch.where(is_match, dcode, 0),
+                "dist_extra_n": torch.where(is_match, dist_extra_n, 0),
+                "dist_extra_v": torch.where(is_match, dist_extra_v, 0)}
 
-        # ------------------------------------------ per-quarter histograms
+    def histograms(self, s: dict) -> dict:
+        """Per-quarter histograms (quarter_hist kernel) and their sums over
+        every contiguous range of quarters."""
         # Non-token positions count nowhere (999 / 99), as in token_fields.
-        NL, ND = C.NUM_USED_LITLEN, C.NUM_DIST_SYMBOLS
-        lsym_eff = torch.where(tvalid, lsym, 999).int()
-        dcode_eff = torch.where(tvalid & is_match, dcode, 99).int()
-        lf_q, df_q = quarter_histograms(lsym_eff, dcode_eff, nq)
+        tvalid = s["tvalid"]
+        lsym_eff = torch.where(tvalid, s["lsym"], 999).int()
+        dcode_eff = torch.where(tvalid & s["is_match"], s["dcode"], 99).int()
+        lf_q, df_q = quarter_histograms(lsym_eff, dcode_eff, self.sc.nq)
         lf_q, df_q = lf_q.long(), df_q.long()
         lf_cum = torch.nn.functional.pad(torch.cumsum(lf_q, dim=1), (0, 0, 1, 0))
         df_cum = torch.nn.functional.pad(torch.cumsum(df_q, dim=1), (0, 0, 1, 0))
         l_freq_r = lf_cum[:, self.range_hi] - lf_cum[:, self.range_lo]  # [B, R, 286]
         d_freq_r = df_cum[:, self.range_hi] - df_cum[:, self.range_lo]  # [B, R, 30]
         l_freq_r[:, :, C.END_OF_BLOCK] += 1
+        return {**s, "lsym_eff": lsym_eff, "dcode_eff": dcode_eff, "lf_q": lf_q, "df_q": df_q,
+                "l_freq_r": l_freq_r, "d_freq_r": d_freq_r}
 
-        # ------------- composition scoring (exact or entropy proxy; exact fixed)
-        fixed_l286 = self.fixed_l_len[:NL]
+    def scoring(self, s: dict) -> dict:
+        """Every range's cost (exact tables and headers, or the entropy proxy;
+        exact fixed), then the cheapest composition of ranges into blocks."""
+        opt = self.options
+        l_freq_r, d_freq_r, n = s["l_freq_r"], s["d_freq_r"], s["n"]
+        out = {}
+        fixed_l286 = self.fixed_l_len[: C.NUM_USED_LITLEN]
         fix_tok_bits_r = self._token_bits(l_freq_r, d_freq_r, fixed_l286, self.fixed_d_len)
         if opt.exact_split_scoring:
             # Optimal tables and exact headers for every range; the chosen
@@ -301,6 +348,8 @@ class ChunkEncoder(nn.Module):
             hdr_r = self._headers(l_len_r, d_len_r)
             dyn_tok_bits_r = self._token_bits(l_freq_r, d_freq_r, l_len_r, d_len_r)
             dyn_score_r = 3 + hdr_r["bits"] + dyn_tok_bits_r
+            out = {"l_len_r": l_len_r, "d_len_r": d_len_r, "hdr_r": hdr_r,
+                   "dyn_tok_bits_r": dyn_tok_bits_r}
         else:
             lbits_p, lu, lz = proxy_bits(l_freq_r, self.proxy_roundup, self.proxy_offsets)
             dbits_p, du, dz = proxy_bits(d_freq_r, self.proxy_roundup, self.proxy_offsets)
@@ -312,42 +361,46 @@ class ChunkEncoder(nn.Module):
         force_fix = n <= 4
         if opt.special == SpecialOptions.ForceFixed:
             force_fix = torch.ones_like(force_fix)
-        NC = len(sc.comps)
+        NC = len(self.sc.comps)
         comp_cost = (range_score[:, None, :] * self.comp_ranges).sum(-1)  # [B, C]
-        not_first = torch.arange(NC, device=dev) != 0
+        not_first = torch.arange(NC, device=n.device) != 0
         comp_cost = torch.where(force_fix[:, None] & not_first, 1 << 30, comp_cost)
         best_comp = torch.argmin(comp_cost, dim=1)  # first minimum
-        is_split = best_comp != 0
+        return {**s, **out, "force_fix": force_fix, "best_comp": best_comp,
+                "is_split": best_comp != 0}
 
-        # ------------- exact Huffman tables for the chosen blocks (<= nq slots)
-        NS = nq
+    def tables(self, s: dict) -> dict:
+        """Exact Huffman tables of the chosen blocks (package_merge kernel),
+        their headers and canonical clen codes, and the exact stored /
+        fixed / dynamic choice (and the force modes)."""
+        opt, E, nq = self.options, self.E, self.sc.nq
+        n, best_comp, force_fix = s["n"], s["best_comp"], s["force_fix"]
+        B, dev = n.shape[0], n.device
+        NS = nq  # at most nq blocks
         exist = self.exist_c[best_comp]  # [B, NS]
         if opt.exact_split_scoring:
             # Each block's tables, header and bit costs are its range's
             # (a missing block selects range 0: inert, every use is gated
             # by ``exist`` or the quarter selectors).
             rid = self.rid_t_c[best_comp]  # [B, NS]
-            l_freq_s, d_freq_s = _gather_slots(l_freq_r, rid), _gather_slots(d_freq_r, rid)
-            l_len_s, d_len_s = _gather_slots(l_len_r, rid), _gather_slots(d_len_r, rid)
-            hdr_s = {k: _gather_slots(v, rid) for k, v in hdr_r.items()}
-            dyn_tok_bits_s = _gather_slots(dyn_tok_bits_r, rid)
+            l_freq_s = _gather_slots(s["l_freq_r"], rid)
+            d_freq_s = _gather_slots(s["d_freq_r"], rid)
+            l_len_s, d_len_s = _gather_slots(s["l_len_r"], rid), _gather_slots(s["d_len_r"], rid)
+            hdr_s = {k: _gather_slots(v, rid) for k, v in s["hdr_r"].items()}
+            dyn_tok_bits_s = _gather_slots(s["dyn_tok_bits_r"], rid)
         else:
             mem = self.mem_c[best_comp]  # [B, NS, nq]
             # (no integer matmul on CUDA: multiply and sum)
-            l_freq_s = (mem[..., None] * lf_q[:, None]).sum(dim=2)
+            l_freq_s = (mem[..., None] * s["lf_q"][:, None]).sum(dim=2)
             l_freq_s[:, :, C.END_OF_BLOCK] += exist
-            d_freq_s = (mem[..., None] * df_q[:, None]).sum(dim=2)
+            d_freq_s = (mem[..., None] * s["df_q"][:, None]).sum(dim=2)
             l_len_s, d_len_s = self._code_lengths(l_freq_s, d_freq_s)
             hdr_s = self._headers(l_len_s, d_len_s)
             dyn_tok_bits_s = self._token_bits(l_freq_s, d_freq_s, l_len_s, d_len_s)
+        fixed_l286 = self.fixed_l_len[: C.NUM_USED_LITLEN]
         fix_tok_bits_s = self._token_bits(l_freq_s, d_freq_s, fixed_l286, self.fixed_d_len)
-        hlit_s, hdist_s, hclen_s = hdr_s["hlit"], hdr_s["hdist"], hdr_s["hclen"]
-        clen_len_s = hdr_s["clen_len"]
-        clen_in_order_s = clen_len_s[..., self.clen_order]
-        dyn_hdr_bits_s = hdr_s["bits"]
-        j = torch.arange(CL_CAP, device=dev)
         clen_codes_s = canonical_codes(
-            clen_len_s.reshape(B * NS, 19), C.MAX_CLEN_CODE_LENGTH).view(B, NS, 19)
+            hdr_s["clen_len"].reshape(B * NS, 19), C.MAX_CLEN_CODE_LENGTH).view(B, NS, 19)
 
         SB = C.MAX_STORED_BLOCK
         n_sub_static = max(1, (E + SB - 1) // SB)
@@ -356,31 +409,43 @@ class ChunkEncoder(nn.Module):
         n_sub = sub_present.sum(dim=1)
         stored_bits = 40 * n_sub + 8 * n
 
-        dyn_total_s = 3 + dyn_hdr_bits_s + dyn_tok_bits_s
+        dyn_total_s = 3 + hdr_s["bits"] + dyn_tok_bits_s
         fix_total_s = 3 + fix_tok_bits_s
         # Fixed beats dynamic on ties (huffman_lengths.rs:271-286).
         s_is_fix = (fix_total_s <= dyn_total_s) | force_fix[:, None]
         slot_cost = torch.where(s_is_fix, fix_total_s, dyn_total_s)
         huff_total = (exist * slot_cost).sum(dim=1)
         whole_fix = s_is_fix[:, 0]
+        is_split = s["is_split"]
         # Chunk-level tie order: fixed beats stored beats dynamic.
         is_stored = (stored_bits < huff_total) | (
             (stored_bits == huff_total) & ~(~is_split & whole_fix))
         is_stored = is_stored & ~force_fix
         if opt.special == SpecialOptions.ForceStored:  # after the force_fix mask
             is_stored = torch.ones_like(is_stored)
-        huff = ~is_stored
-        data_bits = torch.where(is_stored, stored_bits, huff_total)
         btype = torch.where(
             is_stored, C.BTYPE_STORED,
             torch.where(is_split, C.BTYPE_SPLIT,
                         torch.where(whole_fix, C.BTYPE_FIXED, C.BTYPE_DYNAMIC)))
+        return {**s, "l_len_s": l_len_s, "d_len_s": d_len_s, "hdr_s": hdr_s,
+                "clen_codes_s": clen_codes_s, "s_is_fix": s_is_fix, "sub_k": sub_k,
+                "sub_present": sub_present, "n_sub": n_sub, "is_stored": is_stored,
+                "huff": ~is_stored, "data_bits": torch.where(is_stored, stored_bits, huff_total),
+                "btype": btype}
 
-        # ---------------------------------------------------- field arrays
-        NLS = C.NUM_LITLEN_SYMBOLS
+    def fields(self, s: dict) -> dict:
+        """Every field of the Huffman blocks in stream order: block headers,
+        dynamic headers and the tokens (token_fields kernel), end of block."""
+        nq = self.sc.nq
+        QL = self.E // nq
+        NL, ND, NLS = C.NUM_USED_LITLEN, C.NUM_DIST_SYMBOLS, C.NUM_LITLEN_SYMBOLS
+        huff, s_is_fix, best_comp, hdr_s = s["huff"], s["s_is_fix"], s["best_comp"], s["hdr_s"]
+        B, dev = huff.shape[0], huff.device
+        NS = nq
+        clen_len_s = hdr_s["clen_len"]
         l_len_sel_s = torch.where(s_is_fix[..., None], self.fixed_l_len,
-                                  torch.nn.functional.pad(l_len_s, (0, NLS - NL)))
-        d_len_sel_s = torch.where(s_is_fix[..., None], self.fixed_d_len, d_len_s)
+                                  torch.nn.functional.pad(s["l_len_s"], (0, NLS - NL)))
+        d_len_sel_s = torch.where(s_is_fix[..., None], self.fixed_d_len, s["d_len_s"])
         ld_codes = canonical_codes(
             torch.cat([l_len_sel_s, torch.nn.functional.pad(d_len_sel_s, (0, NLS - ND))],
                       dim=1).reshape(B * 2 * NS, NLS),
@@ -396,8 +461,8 @@ class ChunkEncoder(nn.Module):
         q_last = self.last_start[best_comp]
 
         t1v, t1b, t2v, t2b = token_fields(
-            huff.int(), lsym_eff, len_extra_n.int(), len_extra_v.int(),
-            dcode_eff, dist_extra_n.int(), dist_extra_v.int(),
+            huff.int(), s["lsym_eff"], s["len_extra_n"].int(), s["len_extra_v"].int(),
+            s["dcode_eff"], s["dist_extra_n"].int(), s["dist_extra_v"].int(),
             _gather_slots(l_pack_s, sid_q).int().contiguous(),
             _gather_slots(d_pack_s, sid_q).int().contiguous())
 
@@ -406,18 +471,20 @@ class ChunkEncoder(nn.Module):
         dyn_on = hdr_on & ~part_fix
         bt_bits = torch.where(part_fix, C.BTYPE_FIXED, C.BTYPE_DYNAMIC)
         qidx = torch.arange(nq, device=dev)
-        bf = torch.where(qidx == q_last[:, None], is_last.long()[:, None], 0)
+        bf = torch.where(qidx == q_last[:, None], s["is_last"].long()[:, None], 0)
         hdr_v = (bf | (bt_bits << 1))[..., None]
         hdr_b = torch.where(hdr_on, 3, 0)[..., None]
 
-        hlit_q = hlit_s.gather(1, sid_q)
-        hclen_q = hclen_s.gather(1, sid_q)
-        dh_v = torch.stack([hlit_q - 257, hdist_s.gather(1, sid_q) - 1, hclen_q - 4], dim=-1)
+        hlit_q = hdr_s["hlit"].gather(1, sid_q)
+        hclen_q = hdr_s["hclen"].gather(1, sid_q)
+        dh_v = torch.stack([hlit_q - 257, hdr_s["hdist"].gather(1, sid_q) - 1, hclen_q - 4],
+                           dim=-1)
         dh_b = torch.where(dyn_on[..., None], self.dh_bits, 0)
-        co_v = _gather_slots(clen_in_order_s, sid_q)
+        co_v = _gather_slots(clen_len_s[..., self.clen_order], sid_q)
         co_b = torch.where(dyn_on[..., None] & (torch.arange(19, device=dev) < hclen_q[..., None]), 3, 0)
+        j = torch.arange(CL_CAP, device=dev)
         rle_sym = _gather_slots(hdr_s["sym"], sid_q)
-        rle_code_v = _gather_slots(clen_codes_s, sid_q).gather(-1, rle_sym)
+        rle_code_v = _gather_slots(s["clen_codes_s"], sid_q).gather(-1, rle_sym)
         rle_on = (j < _gather_slots(hdr_s["n"], sid_q)[..., None]) & dyn_on[..., None]
         rle_code_b = torch.where(rle_on, _gather_slots(clen_len_s, sid_q).gather(-1, rle_sym), 0)
         rle_ex_v = _gather_slots(hdr_s["extra_vals"], sid_q)
@@ -433,19 +500,28 @@ class ChunkEncoder(nn.Module):
         eob_b = torch.where(huff[:, None] & eob_on_q,
                             _gather_slots(l_len_sel_s[..., C.END_OF_BLOCK], sid_q), 0)[..., None]
 
-        seg_v = torch.cat([hdr_v, dh_v, co_v, rle_v, tok_v, eob_v], dim=-1).reshape(B, -1)
-        seg_b = torch.cat([hdr_b, dh_b, co_b, rle_b, tok_b, eob_b], dim=-1).reshape(B, -1)
+        return {**s,
+                "seg_v": torch.cat([hdr_v, dh_v, co_v, rle_v, tok_v, eob_v], dim=-1).reshape(B, -1),
+                "seg_b": torch.cat([hdr_b, dh_b, co_b, rle_b, tok_b, eob_b], dim=-1).reshape(B, -1)}
 
+    def pack(self, s: dict) -> dict:
+        """The stored sub-blocks' fields and the sync-flush marker after the
+        Huffman fields, bit-packed into words."""
+        E = self.E
+        n, is_last, is_stored, data_bits = s["n"], s["is_last"], s["is_stored"], s["data_bits"]
+        sub_k, sub_present, n_sub = s["sub_k"], s["sub_present"], s["n_sub"]
+        B, dev = n.shape[0], n.device
+        SB = C.MAX_STORED_BLOCK
         # Stored sub-blocks: hdr(3) + pad(5) + LEN + NLEN + payload words.
         sub_len = (n[:, None] - sub_k * SB).clamp(0, SB)
         last_sub = (n_sub - 1).clamp(min=0)
         sub_final = (sub_k == last_sub[:, None]) & is_last[:, None]
         st_v, st_b = [], []
         if self.stored_payload_fields:
-            p = pack_words_aligned(bufs[:, HALO : HALO + E])
+            p = pack_words_aligned(s["bufs"][:, HALO : HALO + E])
             wj = torch.arange(E // 4, device=dev)
             pb_b_all = 8 * (n[:, None] - 4 * wj).clamp(0, 4)
-        for k in range(n_sub_static if self.stored_payload_fields else 0):
+        for k in range(sub_k.shape[0] if self.stored_payload_fields else 0):
             on = (is_stored & sub_present[:, k])[:, None]
             st_v.append(torch.stack([sub_final[:, k].long(), torch.zeros_like(n),
                                      sub_len[:, k], (~sub_len[:, k]) & 0xFFFF], dim=-1))
@@ -463,26 +539,25 @@ class ChunkEncoder(nn.Module):
                          torch.full_like(sync_pad, 16), torch.full_like(sync_pad, 16)], dim=-1),
             0)
 
-        values = torch.cat([seg_v, *st_v, sy_v], dim=1)
-        nbits = torch.cat([seg_b, *st_b, sy_b], dim=1)
+        values = torch.cat([s["seg_v"], *st_v, sy_v], dim=1)
+        nbits = torch.cat([s["seg_b"], *st_b, sy_b], dim=1)
         words, total_bits = pack_fields(values, nbits, self.num_words)
         if not self.stored_payload_fields:
             # Stored chunks packed no fields: their exact size comes from the
             # cost model, data_bits plus the sync marker as for Huffman chunks.
             sync_bits = torch.where(is_last, 0, 3 + sync_pad + 32)
             total_bits = torch.where(is_stored, data_bits + sync_bits, total_bits)
-        out = {
-            "words": words,
-            "total_bits": total_bits,
-            "data_bits": data_bits,
-            "btype": btype,
-            "ntokens": count,
-        }
-        if self.with_checksums:
-            payload = bufs[:, HALO : HALO + E]
-            out["s1"], out["s2"] = adler32_parts_device(payload, n)
-            out["crc_raw"] = crc32_raw_device(payload, n, self.crc_table, self.crc_shift_tables)
-        return out
+        return {**s, "words": words, "total_bits": total_bits}
+
+    def checksums(self, s: dict) -> dict:
+        """With ``with_checksums``: each payload's Adler-32 and raw CRC-32
+        partials."""
+        if not self.with_checksums:
+            return s
+        payload, n = s["bufs"][:, HALO : HALO + self.E], s["n"]
+        s1, s2 = adler32_parts_device(payload, n)
+        return {**s, "s1": s1, "s2": s2,
+                "crc_raw": crc32_raw_device(payload, n, self.crc_table, self.crc_shift_tables)}
 
 
 def pack_words_aligned(payload: torch.Tensor) -> torch.Tensor:

@@ -55,17 +55,16 @@ def main() -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, root)
     os.environ["DEFLATE_TPU_TRACE_CORPUS"] = "1"
-    import chip_smoke
     import deflate_rs_tpu_torch as dt
     from deflate_rs_tpu_torch.models.deflate import compress_stream
     from deflate_rs_tpu_torch.parallel import corpus
+    from deflate_rs_tpu_torch.utils.mix import mix as mix_bytes
 
     bs = args.batch_size or corpus.BATCH_SIZE
     qd = args.queue_depth or corpus.QUEUE_DEPTH
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    with open(os.path.join(root, "tests", "data", "pg11.txt"), "rb") as f:
-        mix = chip_smoke.build_mix(chip_smoke.MIX_BYTES, f.read())
+    mix = mix_bytes()
     default = dt.CompressionOptions.default()
     engines = {
         "corpus": lambda: corpus.compress_corpus(mix, batch_size=bs, queue_depth=qd,

@@ -31,9 +31,7 @@ import numpy as np
 import torch
 
 from ..ops.chunk_encode import HALO, PAD
-
-_HERE = os.path.dirname(os.path.abspath(__file__))
-PG11 = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "tests", "data", "pg11.txt")
+from ..utils.mix import PG11
 
 
 def build_batch(data: bytes, emit: int):

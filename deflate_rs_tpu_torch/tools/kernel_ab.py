@@ -110,6 +110,7 @@ def main() -> int:
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
     from deflate_rs_tpu_torch.runtime import cuda
     from deflate_rs_tpu_torch.utils import kernel_cases
+    from deflate_rs_tpu_torch.utils.mix import mix as mix_bytes
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -165,8 +166,7 @@ def main() -> int:
                 unequal.append(row)
 
     # ----------------------------------------------------------- operands
-    with open(os.path.join(root, "tests", "data", "pg11.txt"), "rb") as f:
-        mix = chip_smoke.build_mix(chip_smoke.MIX_BYTES, f.read())
+    mix = mix_bytes()
     O = dt.CompressionOptions
     wanted = {"default": O.default(), "high": O.high()}
     if "quarter_hist" in chosen:
