@@ -826,7 +826,7 @@ def stages_phase(cuda, mix: bytes, smi: str) -> dict:
         print(f"stages: {preset} B={batch} forward: wall {whole['wall_ms']:.3f} ms, busy "
               f"{whole['busy_ms']:.3f} ms, {whole['kernels']} kernels, {whole['copies']} copies; "
               f"the stages sum to wall {summed['wall_ms']:.3f} ms, busy {summed['busy_ms']:.3f} "
-              f"ms, {summed['kernels']} kernels")
+              f"ms, {summed['kernels']} kernels; profiler traces taken {whole['traces']}")
         if abs(summed["kernels"] - whole["kernels"]) > 0.01 * whole["kernels"]:
             raise SystemExit(f"stages: {preset} B={batch}: the stages launch {summed['kernels']} "
                              f"kernels, forward {whole['kernels']}: more than 1 % apart")

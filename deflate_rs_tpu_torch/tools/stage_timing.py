@@ -12,8 +12,9 @@ beforehand.  On the first ``--batch`` chunks of the 16 MiB mix
 - ``wall_ms``: host clock, synchronised before and after, eager (median of
   ``--reps`` runs after a warm one);
 - ``busy_ms``: the union of the device's kernel, copy and memset intervals
-  under ``torch.profiler``, one profiler window per stage (its second call
-  of the stage);
+  under ``torch.profiler``, one window per stage: one trace holds every
+  stage and the ``forward``, each between two marker kernels on the
+  device's timeline (the forward's row gives ``traces``, the traces taken);
 - ``kernels``: device kernels launched (copies and memsets apart);
 - ``top``: the three kernels with the most device time, by name;
 - ``card``: the card's name and power limit.
@@ -33,6 +34,7 @@ no device metric.
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import functools
 import json
@@ -80,37 +82,79 @@ def _wall_ms(fn, device, reps: int) -> float:
     return statistics.median(walls)
 
 
-def _profile(fn) -> dict:
-    """Device activity of one call of ``fn`` under ``torch.profiler``.
+MARKER = "spin_kernel"  # the kernel of ``torch.cuda._sleep``: a window's edge
 
-    ``fn`` runs twice in the window, and only the second call is recorded:
-    a profiler started after an earlier one in the same process was seen to
-    miss the first few kernels of its window (the first call takes that
-    loss).  The profiler's own step ranges, which it mirrors onto the
-    device's timeline, are no device work and are left out."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
 
+def _marker() -> None:
+    torch.cuda._sleep(1 << 12)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    on_device = [e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")]
-    if not on_device:
-        raise RuntimeError("stage_timing: the profiler saw no device activity")
-    kernels = [e for e in on_device if not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def split_windows(events: list, n: int):
+    """The ``n`` windows of device activity between ``n + 1`` marker kernels.
+
+    ``events`` are (name, start, end) triples.  Activity before the first
+    marker or after the last falls in no window.  None where the markers are
+    not ``n + 1``: the trace then lost one, and its windows cannot be told
+    apart."""
+    marks = sorted(lo for name, lo, _ in events if MARKER in name)
+    if len(marks) != n + 1:
+        return None
+    windows = [[] for _ in range(n)]
+    for name, lo, hi in events:
+        i = bisect.bisect_right(marks, lo) - 1
+        if MARKER not in name and 0 <= i < n:
+            windows[i].append((name, lo, hi))
+    return windows
+
+
+def window_row(window: list) -> dict:
+    """``busy_ms``, ``kernels``, ``copies`` and ``top`` of one window."""
+    kernels = [e for e in window if not e[0].startswith(("Memcpy", "Memset"))]
     by_name = {}
-    for e in kernels:
-        us, count = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    for name, lo, hi in kernels:
+        us, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + hi - lo, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
-    return {"busy_ms": _busy_us([(e.time_range.start, e.time_range.end) for e in on_device]) / 1e3,
-            "kernels": len(kernels), "copies": len(on_device) - len(kernels),
+    return {"busy_ms": _busy_us([(lo, hi) for _, lo, hi in window]) / 1e3,
+            "kernels": len(kernels), "copies": len(window) - len(kernels),
             "top": [[name[:80], round(us / 1e3, 6), count] for name, (us, count) in top]}
+
+
+def _profile(fns: list, attempts: int = 3) -> tuple:
+    """(one ``window_row`` per call of ``fns``, the traces it took) under
+    ``torch.profiler``.
+
+    One trace holds every call, each in a window between two marker kernels,
+    the device synchronised around it.  A trace may lose the device activity
+    at its edges (a later profiler in one process was seen to lose a
+    window's first kernels, and once all of a short one's), so the trace
+    opens and closes with a call of ``fns[-1]`` outside every window.  A
+    trace with a lost marker or an empty window is taken again, at most
+    ``attempts`` times in all; then the tool fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fns[-1]()
+            for fn in fns:
+                _marker()
+                fn()
+                torch.cuda.synchronize()
+            _marker()
+            fns[-1]()
+            torch.cuda.synchronize()
+        # The profiler mirrors host ranges onto the device's timeline: no device work.
+        events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        windows = split_windows(events, len(fns))
+        if windows is not None and all(windows):
+            return [window_row(w) for w in windows], attempt
+    raise RuntimeError(f"stage_timing: the profiler saw no device activity in a window "
+                       f"({attempts} traces; {len(events)} device activities in the last)")
 
 
 def stage_rows(preset: str = "default", batch: int = 64, emit: int = 65536, *,
@@ -146,18 +190,17 @@ def stage_rows(preset: str = "default", batch: int = 64, emit: int = 65536, *,
             jobs.append((name, fn, after is not state))
             state = after
         jobs.append(("forward", functools.partial(enc, dbufs, hist, ns, lasts), True))
-        rows = []
-        for name, fn, active in jobs:
-            row = {"stage": name, **head, "runs": active}
+        key = "wall_ms" if on_card else "cpu_wall_ms"
+        rows = [{"stage": name, **head, "runs": active} for name, _, active in jobs]
+        for row, (_, fn, active) in zip(rows, jobs):
             if active:
-                ms = _wall_ms(fn, dev, reps)
-                if on_card:
-                    row.update(wall_ms=ms, **_profile(fn))
-                else:
-                    row["cpu_wall_ms"] = ms
-            rows.append(row)
+                row[key] = _wall_ms(fn, dev, reps)
+        if on_card:
+            traced, traces = _profile([fn for _, fn, active in jobs if active])
+            for row, window in zip([r for r in rows if r["runs"]], traced):
+                row.update(window)
+            rows[-1]["traces"] = traces
     stages = [r for r in rows[:-1] if r["runs"]]
-    key = "wall_ms" if on_card else "cpu_wall_ms"
     rows[-1]["sum_of_stages"] = {key: sum(r[key] for r in stages)}
     if on_card:
         rows[-1]["sum_of_stages"].update(busy_ms=sum(r["busy_ms"] for r in stages),

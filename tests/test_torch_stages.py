@@ -177,3 +177,30 @@ def test_the_mix_keeps_its_bytes():
     assert hashlib.sha256(m).hexdigest().startswith("293a722978642cdb")
     assert m[:65536] == mix.pg11()[:65536]  # the first chunk: pg11 text
     assert mix.mix(100_000) == m[:100_000]
+
+
+def test_device_activity_splits_at_the_markers():
+    """The trace's activity is cut into windows at the marker kernels; what
+    lies before the first or after the last marker is in no window."""
+    mark = "at::cuda::(anonymous namespace)::spin_kernel(long)"
+    events = [("primer", 0.0, 5.0), (mark, 10.0, 12.0), ("a", 13.0, 20.0),
+              ("Memcpy HtoD", 18.0, 25.0), (mark, 30.0, 31.0), ("b", 32.0, 40.0),
+              ("b", 41.0, 43.0), ("Memset", 44.0, 45.0), (mark, 50.0, 51.0),
+              ("trailer", 60.0, 70.0)]
+    first, second = stage_timing.split_windows(events, 2)
+    assert [e[0] for e in first] == ["a", "Memcpy HtoD"]
+    assert [e[0] for e in second] == ["b", "b", "Memset"]
+    assert stage_timing.window_row(first) == {"busy_ms": 0.012, "kernels": 1, "copies": 1,
+                                              "top": [["a", 0.007, 1]]}
+    row = stage_timing.window_row(second)
+    assert (row["kernels"], row["copies"], row["top"]) == (2, 1, [["b", 0.01, 2]])
+    assert row["busy_ms"] == pytest.approx(0.011)
+
+
+def test_a_lost_marker_leaves_no_windows():
+    """A trace that lost a marker cannot tell its windows apart: it is refused."""
+    mark = "spin_kernel"
+    events = [(mark, 0.0, 1.0), ("a", 2.0, 3.0), (mark, 4.0, 5.0)]
+    assert stage_timing.split_windows(events, 2) is None
+    assert stage_timing.split_windows(events + [(mark, 6.0, 7.0)], 3) is None
+    assert stage_timing.split_windows(events, 1) == [[("a", 2.0, 3.0)]]
