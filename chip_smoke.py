@@ -27,8 +27,10 @@ Phases (each prints a line; any failure exits non-zero):
    of 4 KiB, timed, and one alone, the only batch that tier is launched at.
    Then the adversarial operands of
    ``deflate_rs_tpu_torch/utils/kernel_cases.py`` go through ``parse_scan``,
-   ``package_merge``, ``lr_measure`` and ``quarter_hist`` and their plain
-   versions, exact equality again.  Prints per kernel: its time (CUDA events around replays
+   ``package_merge``, ``lr_measure``, ``quarter_hist`` and ``token_fields``
+   (its ``FIELD_CASES`` and odd shapes, each also one element into its
+   buffers: rows not 16-byte aligned) and their plain versions, exact
+   equality again.  Prints per kernel: its time (CUDA events around replays
    of a CUDA graph of 20 calls of the wrapper, so the card's time without
    the host's launch cost; the eager loop's time beside it), the plain
    version's time, the bound computed from the operands just timed, and for
@@ -101,7 +103,10 @@ Phases (each prints a line; any failure exits non-zero):
    operands the pass hands it: Default at D = 64 on 64 chunks (timed: the
    ``lr_measure_global`` row of the kernels line), one chunk, D = 256, high,
    32 streams of 4 KiB and 8 chunks of 256 KiB; then the whole-window
-   adversarial operands of ``utils/kernel_cases.py``.  MB/s of the one-shot
+   adversarial operands of ``utils/kernel_cases.py``, its other tiled
+   geometries (more than 64 slots, Default's widest union) and the 64-bit
+   winner keys (8,193 slots at a 256 KiB chunk's window, against the plain
+   version taken 512 slots at a time).  MB/s of the one-shot
    on the 16 MiB mix, Default with ``lr_global=64`` and without a knob in
    turns, three runs each, and high with ``lr_global=64`` once; a knob run
    must launch the tiled path and not the block path, every knob-free path
@@ -277,6 +282,34 @@ def harvest(encoder, bufs, hist, ns, last):
 WIDE_EMIT = 262144
 WIDE_BATCH = 8
 HALO = 32768
+
+
+def global_operands(preset: str, D: int, operands, emit: int, lo: int, hi: int):
+    """What the ``lr_global=D`` pass of ``preset`` hands ``lr_measure`` (its
+    tiled path: S = 1, M = D) for rows lo..hi of ``operands`` on the card."""
+    import dataclasses
+
+    import torch
+
+    import deflate_rs_tpu_torch as dt
+    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+
+    dev = torch.device("cuda", 0)
+    o = dataclasses.replace(getattr(dt.CompressionOptions, preset)(), lr_global=D,
+                            chain_scale=max(1, emit // 65536))
+    bufs, hist, ns, last = (torch.from_numpy(a[lo:hi]) for a in operands)
+    with torch.no_grad():
+        seen = harvest(ChunkEncoder(o, emit).to(dev), bufs.to(dev), hist, ns, last)
+    return seen["lr_measure"]
+
+
+def unaligned(t):
+    """``t`` one element into a larger buffer: contiguous, not 16-byte aligned."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
 
 
 def wide_buffers(mix: bytes):
@@ -640,7 +673,6 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
     import torch
 
     from deflate_rs_tpu_torch.ops import lr_kernel
-    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
     from deflate_rs_tpu_torch.parallel import corpus
     from deflate_rs_tpu_torch.utils import kernel_cases
 
@@ -671,14 +703,6 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
         parts = [lr_kernel.lr_measure_plain(buf[i : i + step], doms[i : i + step], N)
                  for i in range(0, buf.shape[0], step)]
         return tuple(torch.cat(p) for p in zip(*parts))
-
-    def global_operands(preset, D, operands, emit, lo, hi):
-        o = dataclasses.replace(getattr(O, preset)(), lr_global=D,
-                                chain_scale=max(1, emit // 65536))
-        bufs, hist, ns, last = (torch.from_numpy(a[lo:hi]) for a in operands)
-        with torch.no_grad():
-            seen = harvest(ChunkEncoder(o, emit).to(dev), bufs.to(dev), hist, ns, last)
-        return seen["lr_measure"]
 
     kb = corpus.BATCH_SIZE
     t64 = tier_buffers(mix, 65536, kb)
@@ -727,9 +751,22 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
                                                      lr_kernel.lr_measure_plain(*a, N))):
             raise SystemExit(f"lr_measure disagrees on the whole-window case B={B} N={N} D={D} "
                              f"seed={seed}")
+    for N, S, M in kernel_cases.LR_TILED_GEOMETRIES:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.lr_tiled_batch(N, S, M))
+        if not all(torch.equal(g, w) for g, w in zip(lr_kernel.lr_measure(*a, N),
+                                                     lr_kernel.lr_measure_plain(*a, N))):
+            raise SystemExit(f"lr_measure disagrees on the tiled geometry N={N} S={S} M={M}")
+    N, S, M = kernel_cases.LR_WIDE_KEY_GEOMETRY
+    a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.lr_tiled_batch(N, S, M, rows=2))
+    if not all(torch.equal(g, w) for g, w in zip(lr_kernel.lr_measure(*a, N),
+                                                 lr_kernel.lr_measure_plain_sliced(*a, N, 512))):
+        raise SystemExit(f"lr_measure disagrees with 64-bit keys at N={N} S={S} M={M}")
+    del a
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     print(f"kernels: whole-window adversarial cases equal the plain version exactly: "
-          f"{len(kernel_cases.LR_GLOBAL_CASES)}")
+          f"{len(kernel_cases.LR_GLOBAL_CASES)}; other tiled geometries "
+          f"{kernel_cases.LR_TILED_GEOMETRIES} and the 64-bit keys at {(N, S, M)} too")
 
     # MB/s of the one-shot with lr_global=64 beside the knob-free Default, in turns.
     o64, o0 = dataclasses.replace(O.default(), lr_global=64), O.default()
@@ -768,9 +805,12 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
         "b1_ms": res["default_d64_b1"]["ms"], "b1_plain_ms": res["default_d64_b1"]["plain_ms"],
         "b1_bound_ms": res["default_d64_b1"]["bound_ms"],
         "d256_ms": res["default_d256"]["ms"], "d256_bound_ms": res["default_d256"]["bound_ms"],
+        "d256_plain_ms": res["default_d256"]["plain_ms"],
         "high_ms": res["high_d64"]["ms"], "high_bound_ms": res["high_d64"]["bound_ms"],
+        "high_plain_ms": res["high_d64"]["plain_ms"],
         "wide_batch": WIDE_BATCH, "wide_ms": res["default_d64_wide"]["ms"],
         "wide_bound_ms": res["default_d64_wide"]["bound_ms"],
+        "wide_plain_ms": res["default_d64_wide"]["plain_ms"],
         "max_abs_err": res["max_abs_err"],
         "ms": d64["ms"], "eager_ms": d64["eager_ms"], "plain_ms": d64["plain_ms"],
         "bound_ms": d64["bound_ms"],
@@ -1099,10 +1139,22 @@ def main() -> int:
                 hist_kernel.quarter_histograms_plain(*a, nq))):
             raise SystemExit(f"quarter_hist disagrees on the adversarial case B={B} E={E} "
                              f"nq={nq} seed={seed}")
+    field_sets = [(c, kernel_cases.field_batch(*c)) for c in kernel_cases.FIELD_CASES]
+    field_sets += [(c, kernel_cases.field_batch(*c, 2)) for c in kernel_cases.FIELD_ODD_SHAPES]
+    for case, ops in field_sets:
+        a = tuple(torch.from_numpy(x).to(dev) for x in ops)
+        # Each [B, E] operand also one element in: rows not 16-byte aligned.
+        for form, args in (("aligned", a), ("unaligned", tuple(
+                unaligned(x) if x.dim() == 2 else x for x in a))):
+            if not all(torch.equal(g, w) for g, w in zip(field_kernel.token_fields(*args),
+                                                         field_kernel.token_fields_plain(*args))):
+                raise SystemExit(f"token_fields disagrees on the adversarial case {case} "
+                                 f"({form})")
     torch.cuda.synchronize()
     print(f"kernels: adversarial cases equal the plain versions exactly: parse_scan "
           f"{len(kernel_cases.PARSE_CASES)}, package_merge {len(pm_cases)}, lr_measure "
-          f"{len(kernel_cases.LR_CASES)}, quarter_hist {len(kernel_cases.HIST_CASES)}")
+          f"{len(kernel_cases.LR_CASES)}, quarter_hist {len(kernel_cases.HIST_CASES)}, "
+          f"token_fields {len(field_sets)}, each aligned and one element in")
     print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------ default path
@@ -1443,6 +1495,7 @@ def main() -> int:
             "wide_batch": WIDE_BATCH,
             "wide_ms": sum(wide[k]["ms"] for k in timed),
             "wide_bound_ms": sum(wide[k]["bound_ms"] for k in timed),
+            "wide_plain_ms": sum(wide[k]["plain_ms"] for k in timed),
             "max_abs_err": max(results[k]["max_abs_err"] for k in checked),
             "ms": sum(results[k]["ms"] for k in timed),
             "eager_ms": sum(results[k]["eager_ms"] for k in timed),

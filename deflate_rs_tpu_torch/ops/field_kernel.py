@@ -6,13 +6,15 @@ position's litlen symbol and distance code are looked up in the owning
 block's packed ``code | len << 16`` tables (288 and 30 entries) and turned
 into two fields: t1 = litlen code with the length extra bits above it, t2 =
 distance code with the distance extra bits above it, each with its width.
-Widths are 0 where the position is not a token (``lsym`` 999 / ``dcode`` 99)
-and in stored chunks (``huff`` 0).  Values follow uint32 shift semantics and
-are returned as int32 bit patterns.
+Values follow uint32 shift semantics and are returned as int32 bit patterns.
 
-:func:`token_fields_plain` is the direct-index form of the JAX package's
-``chunk_encode.py:717-729``; symbols outside a table look up 0, as in the
-kernel, so the two agree everywhere, not only where widths are nonzero.
+The rules are the Pallas kernel's, element for element, on any int32 input.
+A position is a litlen token where ``lsym < 288`` and a match token where
+``dcode < 30``, in a chunk with ``huff`` set: the encoder's sentinels (999,
+99) are not, and negative symbols are.  A symbol outside ``[0, nsym)`` looks
+up 0, so a negative token's width is its extra-bit count alone.  A table
+entry's width is its high half shifted arithmetically (an entry with bit 31
+set has a negative width); a shift by a width outside ``[0, 32)`` gives 0.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from ..runtime import cuda
 
 NSYM_L = 288
 NSYM_D = 30
+TILE_POSITIONS = 512  # positions of a block of the CUDA kernel (kTile)
+MAX_TILE_QUARTERS = 38  # quarters whose tables fit a block's 48 KB of shared memory
 
 _KERNEL = cuda.register("token_fields", [
     ctypes.c_void_p,                                                  # huff
@@ -47,6 +51,12 @@ def _lookup(tbl_q, sym, nsym: int, nq: int):
     return torch.where(ok, vals, 0)
 
 
+def _shl32(v, s):
+    """uint32 ``v << s``: 0 where the shift lies outside [0, 32)."""
+    ok = (s >= 0) & (s < 32)
+    return torch.where(ok, (v.long() & 0xFFFFFFFF) << s.clamp(0, 31), 0) & 0xFFFFFFFF
+
+
 def token_fields_plain(huff, lsym, len_en, len_ev, dcode, dist_en, dist_ev,
                        l_pack_q, d_pack_q):
     """Plain PyTorch version of :func:`token_fields` (same outputs)."""
@@ -54,15 +64,13 @@ def token_fields_plain(huff, lsym, len_en, len_ev, dcode, dist_en, dist_ev,
     on = (huff != 0)[:, None]
     l_pack = _lookup(l_pack_q, lsym, NSYM_L, nq)
     d_pack = _lookup(d_pack_q, dcode, NSYM_D, nq)
-    l_len = l_pack >> 16
+    l_len = l_pack >> 16  # the int32 entries sign-extended: an arithmetic shift
     d_len = d_pack >> 16
-    # uint32 shifts: a shift by 32 or more gives 0.
-    t1v = ((l_pack & 0xFFFF) | torch.where(l_len < 32, (len_ev.long() & 0xFFFFFFFF) << l_len.clamp(max=31), 0)) & 0xFFFFFFFF
-    t2v = ((d_pack & 0xFFFF) | torch.where(d_len < 32, (dist_ev.long() & 0xFFFFFFFF) << d_len.clamp(max=31), 0)) & 0xFFFFFFFF
-    tok = on & (lsym >= 0) & (lsym < NSYM_L)
-    mt = on & (dcode >= 0) & (dcode < NSYM_D)
-    t1b = torch.where(tok, l_len + len_en, 0)
-    t2b = torch.where(mt, d_len + dist_en, 0)
+    t1v = (l_pack & 0xFFFF) | _shl32(len_ev, l_len)
+    t2v = (d_pack & 0xFFFF) | _shl32(dist_ev, d_len)
+    t1b = torch.where(on & (lsym < NSYM_L), l_len + len_en, 0)
+    t2b = torch.where(on & (dcode < NSYM_D), d_len + dist_en, 0)
+    # int32 wraps, as the kernels' sums do.
     return t1v.int(), t1b.int(), t2v.int(), t2b.int()
 
 
@@ -79,7 +87,11 @@ def token_fields(huff, lsym, len_en, len_ev, dcode, dist_en, dist_ev,
       l_pack_q: int32[B, nq, 288], d_pack_q: int32[B, nq, 30] packed
         ``code | len << 16`` tables of each quarter's block.
 
-    Returns (t1v, t1b, t2v, t2b).
+    Returns (t1v, t1b, t2v, t2b).  On a CUDA tensor the kernel takes any
+    contiguous operands: 16-byte loads where every row is 16-byte aligned,
+    scalar loads otherwise.  It raises where a tile of ``TILE_POSITIONS``
+    touches more than ``MAX_TILE_QUARTERS`` quarters (quarters of about 14
+    positions, which no preset makes).
     """
     if not lsym.is_cuda:
         return token_fields_plain(huff, lsym, len_en, len_ev, dcode, dist_en,
@@ -88,6 +100,9 @@ def token_fields(huff, lsym, len_en, len_ev, dcode, dist_en, dist_ev,
     nq = l_pack_q.shape[1]
     if E % nq:
         raise ValueError(f"token_fields: E={E} does not divide by nq={nq}")
+    if E and min(nq, (TILE_POSITIONS - 1) // (E // nq) + 2) > MAX_TILE_QUARTERS:
+        raise ValueError(f"token_fields: quarters of {E // nq} positions are too short for "
+                         f"a tile of {TILE_POSITIONS}")
     cuda.check_cuda(huff, "huff", torch.int32, (B,))
     for name, t in (("lsym", lsym), ("len_en", len_en), ("len_ev", len_ev),
                     ("dcode", dcode), ("dist_en", dist_en), ("dist_ev", dist_ev)):

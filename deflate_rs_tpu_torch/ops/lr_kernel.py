@@ -22,7 +22,9 @@ tensor and the plain version on a CPU one.  The kernel has two paths, chosen
 from the geometry: one block a segment where the window fits a block's shared
 memory and the winner key has room for the slot (the presets' local pass),
 else the tiled path (the whole-chunk window of ``lr_global``, or more than
-64 slots).
+64 slots): three launches, counted as one call of ``lr_measure_tiled``, over
+tiles of ``TILE_WORDS`` words and groups of 8 to 32 live slots, whose
+winners meet in keys of :func:`tiled_key_bits`.
 """
 
 from __future__ import annotations
@@ -45,14 +47,30 @@ _KERNEL = cuda.register("lr_measure", [
 _TILED = cuda.register("lr_measure_tiled", [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,       # buf, buf_len, doms
     ctypes.c_int, ctypes.c_int, ctypes.c_int,             # B, S, M
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,          # L, LW, first-mismatch scratch
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,          # L, LW, scratch
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,    # run, dist, xor_next
 ])
 
 # The block path's limits; the tiled path takes anything beyond them.
 MAX_SLOTS = 64  # dominants per segment its winner key has room for
 MAX_WINDOW_WORDS = 5632  # words per segment a block's shared memory holds
-TILE_WORDS = 2048  # words of a tile of the tiled path (kTile)
+TILE_WORDS = 1024  # words of a tile of the tiled path (kTile)
+
+
+def tiled_key_bits(LW: int, M: int) -> tuple:
+    """(sb, bytes) of the tiled path's winner keys ``(run + 1) << sb |
+    (2^sb - 1 - slot)``: sb the fewest bits that hold a slot index, in 4
+    bytes where ``(4 LW + 1) << sb`` fits 32 bits (a run is at most 4 LW),
+    else sb = 32 in 8 bytes."""
+    sb = max(1, (M - 1).bit_length())
+    return (sb, 4) if (4 * LW + 1) << sb < 1 << 32 else (32, 8)
+
+
+def tiled_scratch_words(B: int, S: int, M: int, LW: int) -> int:
+    """int32 words of the tiled path's scratch: the first mismatches
+    [B, S, M, tiles], padded to 8 bytes, then room for 64-bit keys [B, S, LW]."""
+    nfirst = B * S * M * -(-LW // TILE_WORDS)
+    return nfirst + nfirst % 2 + 2 * B * S * LW
 
 
 def window_words(N: int, S: int) -> int:
@@ -88,6 +106,21 @@ def lr_measure_plain(buf: torch.Tensor, doms: torch.Tensor, N: int):
     return run_w.int(), dist_w.int(), xor_next
 
 
+def lr_measure_plain_sliced(buf: torch.Tensor, doms: torch.Tensor, N: int, step: int):
+    """:func:`lr_measure_plain` over ``step`` slots at a time (its [B, S, M,
+    LW] temporaries grow with M): a slice wins a word where its run is longer
+    than every earlier slice's, and word w's XOR follows the slice that wins
+    word w + 1."""
+    parts = (lr_measure_plain(buf, doms[..., i : i + step].contiguous(), N)
+             for i in range(0, doms.shape[-1], step))
+    run, dist, xn = next(parts)
+    for r, d, x in parts:
+        better = r > run
+        run, dist = torch.where(better, r, run), torch.where(better, d, dist)
+        xn = torch.where(torch.nn.functional.pad(better[..., 1:], (0, 1)), x, xn)
+    return run, dist, xn
+
+
 def lr_measure(buf: torch.Tensor, doms: torch.Tensor, N: int):
     """Per-segment-word winner of the dominant-distance measurement.
 
@@ -114,8 +147,8 @@ def lr_measure(buf: torch.Tensor, doms: torch.Tensor, N: int):
         _KERNEL(buf.device, buf.data_ptr(), buf.shape[1], doms.data_ptr(), B, S, M,
                 L, LW, run.data_ptr(), dist.data_ptr(), xn.data_ptr())
     else:
-        first = torch.empty((B, S, M, -(-LW // TILE_WORDS)), dtype=torch.int32,
-                            device=buf.device)
+        scratch = torch.empty(tiled_scratch_words(B, S, M, LW), dtype=torch.int32,
+                              device=buf.device)
         _TILED(buf.device, buf.data_ptr(), buf.shape[1], doms.data_ptr(), B, S, M, L, LW,
-               first.data_ptr(), run.data_ptr(), dist.data_ptr(), xn.data_ptr())
+               scratch.data_ptr(), run.data_ptr(), dist.data_ptr(), xn.data_ptr())
     return run, dist, xn

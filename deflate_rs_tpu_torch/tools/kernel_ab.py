@@ -6,19 +6,27 @@ and timed in one process on the same operands, in turns (old, new, new,
 old).  Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 -m deflate_rs_tpu_torch.tools.kernel_ab --old-csrc DIR [DIR ...] \\
-        [--kernels lr_measure,quarter_hist,parse_scan,package_merge] [--iters 200]
+        [--kernels lr_measure,lr_measure_tiled,token_fields,quarter_hist,parse_scan,package_merge] \\
+        [--iters 200] [--sass]
 
-``DIR`` holds the older ``<kernel>.cu`` of every kernel named (for example
-``git show <commit>:deflate_rs_tpu_torch/csrc/lr_measure.cu``); the new ones
-are the package's own.  Several directories (steps of a redesign) are timed
-in the order given, then the new sources, then all again in reverse.
-Operands:
+``DIR`` holds the older source of every kernel named (for example
+``git show <commit>:deflate_rs_tpu_torch/csrc/lr_measure.cu``;
+``lr_measure_tiled``, the tiled path, lives in ``lr_measure.cu`` too); the
+new ones are the package's own.  Several directories (steps of a redesign)
+are timed in the order given, then the new sources, then all again in
+reverse.  Operands:
 
 - ``lr_measure``: the Default encoder's inputs at 32 and 64 chunks of 64 KiB
   (64 segments; 64 chunks is the corpus engine's batch), the ``high``
   encoder's (32 segments), Default's in the 4 KiB tier, one chunk alone, and
   two adversarial batches (every pattern mixed; all-zero buffers, where every
   live dominant ties over the whole window), all on the block path;
+- ``lr_measure_tiled``: what the ``lr_global`` pass hands it (one segment,
+  D slots): Default at D = 64 on 64 chunks, one chunk, D = 256, high, 32
+  streams of 4 KiB and 8 chunks of 256 KiB, and the all-zero batch at D = 64;
+- ``token_fields``: Default's inputs at 64 chunks, one chunk, 32 streams of
+  4 KiB, 8 chunks of 256 KiB and the sharded step's 256 chunks, and the 64
+  chunks again one element into their buffers (rows not 16-byte aligned);
 - ``quarter_hist``: Default's (nq 8), fast's (nq 1) and rle's (nq 4)
   inputs, one chunk alone at nq 8 and nq 1, and one symbol at every
   position at nq 1 and nq 8;
@@ -33,7 +41,11 @@ twin on every set.
 Two clocks per entry, both CUDA events: ``eager`` is a loop of ``--iters``
 raw launches from Python (host launch cost included where the kernel is
 shorter than it), ``graph`` replays a CUDA graph of the same launches (the
-card's time alone).  It prints one JSON object per line.
+card's time alone).  It prints one JSON object per line, with each entry's
+bound (``bound_ms``, as ``chip_smoke.py`` computes it) beside its times.
+``--sass`` also prints, per version and kernel function, the counts of the
+shared-memory, atomic and load instructions in its SASS (``cuobjdump``),
+and ``ptxas`` reports each function's registers and spills.
 """
 
 from __future__ import annotations
@@ -45,7 +57,11 @@ import os
 import subprocess
 import sys
 
-KERNELS = ("lr_measure", "quarter_hist", "parse_scan", "package_merge")
+KERNELS = ("lr_measure", "lr_measure_tiled", "token_fields", "quarter_hist", "parse_scan",
+           "package_merge")
+SOURCE = {k: "lr_measure.cu" if k == "lr_measure_tiled" else f"{k}.cu" for k in KERNELS}
+# SASS opcodes counted by --sass (by prefix, predicates and modifiers kept).
+SASS_OPS = ("ATOMS", "ATOMG", "ATOM", "RED", "LDS", "STS", "LDG", "STG", "SHFL", "VOTE")
 
 
 def _build(nvcc: str, flags: list, sources: list, out: str) -> ctypes.CDLL:
@@ -54,9 +70,34 @@ def _build(nvcc: str, flags: list, sources: list, out: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed on {sources}:\n{proc.stdout}\n{proc.stderr}")
     for line in proc.stderr.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
     return ctypes.CDLL(out)
+
+
+def _sass(nvcc: str, flags: list, source: str, out: str) -> dict:
+    """{kernel function: {opcode: count}} of ``source``'s SASS, for the
+    opcodes of ``SASS_OPS`` (counted with their modifiers, e.g. LDS.128)."""
+    cubin_flags = [f for f in flags if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([nvcc, *cubin_flags, "-cubin", "-o", out, source],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc -cubin failed on {source}:\n{proc.stderr}")
+    dump = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", out],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in dump.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = {}
+        elif fn and line.startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].replace(";", " ").split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words and words[0].split(".")[0] in SASS_OPS:
+                counts[fn][words[0]] = counts[fn].get(words[0], 0) + 1
+    return counts
 
 
 def _times(torch, launch, iters: int) -> dict:
@@ -89,10 +130,14 @@ def main() -> int:
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated subset of " + ", ".join(KERNELS))
     ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--sass", action="store_true",
+                    help="print the SASS instruction counts of every version's kernels")
     args = ap.parse_args()
     chosen = args.kernels.split(",")
     if not chosen or any(k not in KERNELS for k in chosen):
         ap.error(f"--kernels takes names of {KERNELS}")
+
+    import dataclasses
 
     import numpy as np
     import torch
@@ -116,7 +161,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi, "iters": args.iters, "kernels": chosen}))
-    names = [f"{k}.cu" for k in chosen]
+    names = sorted({SOURCE[k] for k in chosen})
     tmp = os.path.join(cuda.BUILD_DIR, "kernel_ab")
     os.makedirs(tmp, exist_ok=True)
     # Versions by name: "old" (or "old:DIR" where several were given), "new".
@@ -127,9 +172,18 @@ def main() -> int:
                         os.path.join(tmp, f"lib{i}.so"))
         for i, (version, d) in enumerate(dirs.items())
     }
+    if args.sass:
+        for i, (version, d) in enumerate(dirs.items()):
+            for n in names:
+                for fn, counts in _sass(cuda._nvcc(), cuda.NVCC_FLAGS, os.path.join(d, n),
+                                        os.path.join(tmp, f"{i}_{n}.cubin")).items():
+                    print(json.dumps({"sass": version, "source": n, "function": fn,
+                                      "counts": counts}))
     P, I = ctypes.c_void_p, ctypes.c_int
     argtypes = {
         "lr_measure": [P, I, P, I, I, I, I, I, P, P, P, P],
+        "lr_measure_tiled": [P, I, P, I, I, I, I, I, P, P, P, P, P],
+        "token_fields": [P] * 9 + [I, I, I] + [P] * 5,
         "quarter_hist": [P, P, I, I, I, P, P, P],
         "parse_scan": [P, P, I, I, P, P],
         "package_merge": [P, I, I, I, P, P],
@@ -143,9 +197,12 @@ def main() -> int:
 
     unequal = []
 
-    def ab(kernel: str, operands: str, info: dict, call, outs, want) -> None:
+    def ab(kernel: str, operands: str, info: dict, call, outs, want, bound=None) -> None:
         """Time ``call(lib_fn)`` old, new, new, old; ``outs`` (overwritten
-        before each turn's first launch) must equal ``want``."""
+        before each turn's first launch) must equal ``want``.  ``bound``:
+        (key, args) of ``chip_smoke.bound_of`` for the entry's bound."""
+        if bound is not None:
+            info = {**info, "bound_ms": max(chip_smoke.bound_of(*bound, want))}
         for which in [*libs, *reversed(libs)]:
             fn = getattr(libs[which], kernel)
 
@@ -172,7 +229,7 @@ def main() -> int:
     if "quarter_hist" in chosen:
         wanted.update(fast=O.fast(), rle=O.rle())
     seen = {}
-    for emit in (65536, 4096) if "lr_measure" in chosen else (65536,):
+    for emit in (65536, 4096) if {"lr_measure", "token_fields"} & set(chosen) else (65536,):
         bufs, hist, ns, last = chip_smoke.tier_buffers(mix, emit)
         for name, o in wanted.items():
             if emit == 4096 and name != "default":
@@ -182,7 +239,7 @@ def main() -> int:
                     ChunkEncoder(o, emit).to(dev), torch.from_numpy(bufs).to(dev),
                     torch.from_numpy(hist), torch.from_numpy(ns), torch.from_numpy(last))
 
-    if "lr_measure" in chosen:  # and the corpus engine's batch, 64 chunks
+    if {"lr_measure", "token_fields"} & set(chosen):  # and the corpus engine's batch, 64 chunks
         bufs, hist, ns, last = chip_smoke.tier_buffers(mix, 65536, 64)
         with torch.no_grad():
             seen["default", "b64"] = chip_smoke.harvest(
@@ -221,6 +278,89 @@ def main() -> int:
 
             ab("lr_measure", name, {"shape": [B, S, M], "N": N,
                                     "live": float((doms > 0).float().mean())}, call, outs, want)
+
+    # --------------------------------------------------- lr_measure, tiled
+    if "lr_measure_tiled" in chosen:
+        t64 = chip_smoke.tier_buffers(mix, 65536, 64)
+        tiled_ops = {
+            name: chip_smoke.global_operands(*spec) for name, spec in {
+                "default_d64_b64": ("default", 64, t64, 65536, 0, 64),
+                "default_d64_one_chunk": ("default", 64, t64, 65536, 1, 2),
+                "default_d256_b64": ("default", 256, t64, 65536, 0, 64),
+                "high_d64_b64": ("high", 64, t64, 65536, 0, 64),
+                "default_d64_4k_tier": ("default", 64, chip_smoke.tier_buffers(mix, 4096), 4096,
+                                        0, chip_smoke.BATCH),
+                "default_d64_8x256k": ("default", 64, chip_smoke.wide_buffers(mix),
+                                       chip_smoke.WIDE_EMIT, 0, chip_smoke.WIDE_BATCH),
+            }.items()
+        }
+        rng = np.random.default_rng(8)
+        rows = [kernel_cases.lr_global_operands("zeros", rng, 98304, 64) for _ in range(16)]
+        tiled_ops["zeros_d64_b16"] = (*to_dev(np.stack([r[0] for r in rows]),
+                                            np.stack([r[1] for r in rows])), 98304)
+        for name, (buf, doms, N) in tiled_ops.items():
+            B, S, M = doms.shape
+            LW = lr_kernel.window_words(N, S)
+            parts = [lr_kernel.lr_measure_plain(buf[i : i + 16], doms[i : i + 16], N)
+                     for i in range(0, B, 16)]
+            want = tuple(torch.cat(p) for p in zip(*parts))
+            outs = [torch.empty((B, S, LW), dtype=t, device=dev)
+                    for t in (torch.int32, torch.int32, torch.int64)]
+            scratch = torch.empty(lr_kernel.tiled_scratch_words(B, S, M, LW), dtype=torch.int32,
+                                  device=dev)
+
+            def call(fn):
+                return fn(buf.data_ptr(), buf.shape[1], doms.data_ptr(), B, S, M, N // S, LW,
+                          scratch.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                          outs[2].data_ptr(), stream())
+
+            ab("lr_measure_tiled", name, {"shape": [B, S, M], "N": N,
+                                          "live": int((doms > 0).sum())},
+               call, outs, want, bound=("lr_measure", (buf, doms, N)))
+        del tiled_ops
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- token_fields
+    if "token_fields" in chosen:
+        from deflate_rs_tpu_torch.ops import field_kernel
+        from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch
+
+        wide_opts = dataclasses.replace(O.default(), chain_scale=chip_smoke.WIDE_EMIT // 65536)
+        step_kw = {"with_checksums": True, "stored_payload_fields": False}
+
+        def fields_of(encoder, operands):
+            bufs, hist, ns, last = (torch.from_numpy(a) for a in operands)
+            with torch.no_grad():
+                return chip_smoke.harvest(encoder.to(dev), bufs.to(dev), hist, ns,
+                                          last)["token_fields"]
+
+        b64 = seen["default", "b64"]["token_fields"]
+        field_ops = {
+            "default_b64": b64,
+            "default_one_chunk": tuple(a[1:2].contiguous() for a in b64),
+            "default_4k_tier_b32": seen["default", 4096]["token_fields"],
+            "default_8x256k": fields_of(ChunkEncoder(wide_opts, chip_smoke.WIDE_EMIT),
+                                        chip_smoke.wide_buffers(mix)),
+            "sharded_step": fields_of(ChunkEncoder(O.default(), 65536, **step_kw),
+                                      build_batch(mix, 65536)),
+            "default_b64_unaligned": tuple(chip_smoke.unaligned(a) if a.dim() == 2 else a
+                                           for a in b64),
+        }
+        for name, fargs in field_ops.items():
+            B, E = fargs[1].shape
+            nq = fargs[7].shape[1]
+            want = field_kernel.token_fields_plain(*fargs)
+            outs = [torch.empty((B, E), dtype=torch.int32, device=dev) for _ in range(4)]
+
+            def call(fn):
+                return fn(*(a.data_ptr() for a in fargs), B, E, nq,
+                          *(o.data_ptr() for o in outs), stream())
+
+            ab("token_fields", name, {"shape": [B, E], "nq": nq,
+                                      "aligned": fargs[1].data_ptr() % 16 == 0},
+               call, outs, want, bound=("token_fields", fargs))
+        del field_ops
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------- quarter_hist
     if "quarter_hist" in chosen:

@@ -12,7 +12,9 @@ past its end, dead, holed, duplicated and full dominant rows; and at the
 whole-chunk window of one segment (the tiled path), runs that cross tiles or
 go on to the window's end and equal long runs at two slots.
 ``quarter_hist``: one symbol everywhere, nothing in range, negatives, the
-bins' edges.  This module builds such operands with numpy from a seed, so
+bins' edges.  ``token_fields``: symbols on either side of both tables' ends
+and negative ones, table widths of 0, 15, 32 and more and below 0, extra
+values with bits above their width, stored rows.  This module builds such operands with numpy from a seed, so
 that the CPU tests (against the JAX package and the plain twins) and the
 card-side checks (``chip_smoke.py``, ``tests/test_torch_cuda.py``,
 ``tools/kernel_ab.py``) run the same cases.
@@ -331,7 +333,8 @@ LR_CASES_WIDE = ([(1, 64, 294912, seed) for seed in range(len(LR_PATTERNS))]
 # The lr_global pass measures the whole chunk as one segment (S = 1) at up to
 # D slots: the kernel's tiled path, tiles of LR_TILE words.
 
-LR_TILE = 2048  # words of a tile of the tiled path (csrc/lr_measure.cu, kTile)
+LR_TILE = 1024  # words of a tile of the tiled path (csrc/lr_measure.cu, kTile)
+LR_EDGE = 8 * LR_TILE  # bytes between the edges the patterns below straddle: two tiles
 LR_GLOBAL_PATTERNS = LR_PATTERNS + ("cross", "ties", "before", "to_end")
 
 
@@ -340,17 +343,17 @@ def lr_global_operands(pattern: str, rng, N: int, D: int):
     the named pattern, every slot live.  The patterns of ``LR_PATTERNS``
     are built as :func:`lr_operands` builds segment 0; then:
 
-    - ``cross``: copies of 3 tiles and more that start just before a tile's
-      end, so a run crosses tiles and its carry decides its length;
+    - ``cross``: copies of 3 ``LR_EDGE`` and more that start just before an
+      edge, so a run crosses tiles and its carry decides its length;
     - ``ties``: two regions of 300-700 random bytes, each repeated at a short
-      and a long distance (their sources a few tiles apart) and straddling a
-      tile's edge: equal runs above 258 bytes at two slots, the earlier slot
+      and a long distance (their sources a few tiles apart) and straddling an
+      edge: equal runs above 258 bytes at two slots, the earlier slot
       short in one region and long in the other, and the earlier must win;
     - ``before``: 20,000 zero bytes at the start and distances up to 32,768,
       so the words d bytes back lie before the buffer (and read as zero);
     - ``to_end``: the last 30,000 bytes and the pad are zero, so runs at
       short distances go on to the window's end (no mismatch after them)."""
-    T = 4 * LR_TILE  # bytes of a tile
+    T = LR_EDGE
     n = N + LR_PAD
     if pattern in LR_PATTERNS:
         return lr_operands(pattern, rng, N, 1, D)
@@ -414,15 +417,34 @@ def lr_global_batch(B: int, N: int, D: int, seed: int = 0):
 
 
 # (B, N, D, seed) at S = 1: every pattern at the 4 KiB tier's N (windows of
-# 9,283 words, 5 tiles) with D = 64 and 256, and at 64 KiB (24,643 words, 13
+# 9,283 words, 10 tiles) with D = 64 and 256, and at 64 KiB (24,643 words, 25
 # tiles) with D = 64; the new patterns at D = 256 there and at 256 KiB (73,795
-# words, 37 tiles) with D = 64; two batches with dead slots.
+# words, 73 tiles) with D = 64; two batches with dead slots.
 LR_GLOBAL_CASES = ([(1, 36864, D, seed) for D in (64, 256)
                     for seed in range(len(LR_GLOBAL_PATTERNS))]
                    + [(1, 98304, 64, seed) for seed in range(len(LR_GLOBAL_PATTERNS))]
                    + [(1, N, D, seed) for N, D in ((98304, 256), (294912, 64))
                       for seed in range(len(LR_PATTERNS), len(LR_GLOBAL_PATTERNS))]
                    + [(4, 98304, 64, 3), (3, 36864, 256, 6)])
+
+
+# (N, S, M): the tiled path where the block path's key has no room (more than
+# 64 slots) at windows that fit it, and the widest union of Default (64
+# segments x 48 dominants) at the 4 KiB tier's whole-chunk window.
+LR_TILED_GEOMETRIES = [(4096, 1, 70), (4096, 2, 70), (98304, 32, 100), (36864, 1, 3072)]
+# The 64-bit winner keys: one slot more than the 32-bit form takes at the
+# widest window (a 256 KiB chunk with its history as one segment).
+LR_WIDE_KEY_GEOMETRY = (294912, 1, 8193)
+
+
+def lr_tiled_batch(N: int, S: int, M: int, rows: int = 3):
+    """``(buf uint8[rows, N + LR_PAD + 1], doms int32[rows, S, M])``: row
+    ``i`` in pattern ``i % 6`` of ``LR_PATTERNS``; the odd row length starts
+    each row at another byte alignment."""
+    rng = np.random.default_rng(M + S)
+    ops = [lr_operands(LR_PATTERNS[i % len(LR_PATTERNS)], rng, N, S, M) for i in range(rows)]
+    bufs = np.concatenate([np.stack([o[0] for o in ops]), np.zeros((rows, 1), np.uint8)], axis=1)
+    return bufs, np.stack([o[1] for o in ops])
 
 
 # ----------------------------------------------------------- quarter_hist
@@ -470,3 +492,74 @@ HIST_CASES_WIDE = [(2, 262144, nq, seed) for nq, seed in ((1, 0), (4, 1), (8, 2)
 HIST_CASES = ([(1, E, nq, seed) for E in (4096, 65536) for nq in (1, 2, 4, 8)
                for seed in range(len(HIST_PATTERNS))]
               + [(33, E, nq, 0) for E in (4096, 65536) for nq in (1, 2, 4, 8)])
+
+
+# ----------------------------------------------------------- token_fields
+
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
+# Symbols on either side of each table's ends, the encoder's sentinels and
+# the int32 extremes: every one below 288 (30) is a token, negatives too.
+FIELD_LSYM_EDGES = np.array([-1, 0, 287, 288, 999, -300, I32_MIN, I32_MAX], np.int32)
+FIELD_DCODE_EDGES = np.array([-1, 0, 29, 30, 99, -31, I32_MIN, I32_MAX], np.int32)
+# Widths of a table entry's high half: none, the longest code, shifts of 32
+# and more, and halves with bit 15 set (an entry below 0: a negative width).
+FIELD_WIDTHS = np.array([0, 15, 32, 33, 40, 0x7FFF, 0x8000, 0xFFFF], np.int64)
+
+
+def field_operands(rng, E: int, nq: int, huff: int):
+    """One chunk's token_fields operands ``(huff, lsym, len_en, len_ev,
+    dcode, dist_en, dist_ev, l_pack_q, d_pack_q)`` (the arrays without their
+    batch axis): text-like symbols with a third of the positions on
+    ``FIELD_*_EDGES``; table entries whose codes use all 16 bits and whose
+    widths are mostly 1..15 with an eighth on ``FIELD_WIDTHS``; extra-bit
+    counts of 0..13 with the odd 31, 32 or -1; extra values anywhere in the
+    32 bits, so they carry bits above their width."""
+    lsym = rng.integers(0, 286, E).astype(np.int32)
+    lsym[rng.random(E) < 0.3] = 999
+    at = rng.random(E) < 0.3
+    lsym[at] = rng.choice(FIELD_LSYM_EDGES, int(at.sum()))
+    dcode = rng.integers(0, 30, E).astype(np.int32)
+    dcode[rng.random(E) < 0.5] = 99
+    at = rng.random(E) < 0.3
+    dcode[at] = rng.choice(FIELD_DCODE_EDGES, int(at.sum()))
+
+    def extra(hi):
+        en = rng.integers(0, hi, E).astype(np.int32)
+        odd = rng.random(E) < 0.02
+        en[odd] = rng.choice(np.array([31, 32, -1], np.int32), int(odd.sum()))
+        ev = rng.integers(I32_MIN, I32_MAX, E, dtype=np.int64, endpoint=True).astype(np.int32)
+        return en, ev
+
+    def table(n):
+        width = rng.integers(1, 16, (nq, n)).astype(np.int64)
+        odd = rng.random((nq, n)) < 0.125
+        width[odd] = rng.choice(FIELD_WIDTHS, int(odd.sum()))
+        code = rng.integers(0, 1 << 16, (nq, n))
+        return ((width << 16) | code).astype(np.uint32).view(np.int32)
+
+    len_en, len_ev = extra(6)
+    dist_en, dist_ev = extra(14)
+    return (np.int32(huff), lsym, len_en, len_ev, dcode, dist_en, dist_ev,
+            table(288), table(30))
+
+
+def field_batch(B: int, E: int, nq: int, seed: int = 0):
+    """The nine token_fields operands for ``B`` chunks; row ``r`` is stored
+    (``huff`` 0) where ``(r + seed) % 3 == 2``."""
+    rng = np.random.default_rng(11000 * seed + E + 7 * nq + B)
+    rows = [field_operands(rng, E, nq, int((r + seed) % 3 != 2)) for r in range(B)]
+    return tuple(np.stack(col) for col in zip(*rows))
+
+
+# (B, E, nq): shapes outside the encoder's, for the kernel's edge paths: rows
+# whose length is no multiple of 4 (scalar loads), quarters of 3 positions
+# (a tile touching four), more quarters than a preset makes.
+FIELD_ODD_SHAPES = [(2, 4098, 2), (3, 6000, 3), (1, 12, 4), (2, 65536, 32)]
+
+# (B, E, nq, seed): one chunk of both tiers at every number of quarters a
+# preset or block_split makes (the 4 KiB tier at nq 32 has quarters of 128
+# positions, four to a kernel tile), stored rows among them; a batch of
+# three; one chunk of the widest tier.
+FIELD_CASES = ([(1, E, nq, seed) for E in (4096, 65536)
+                for seed, nq in enumerate((1, 2, 4, 8, 32))]
+               + [(3, 4096, 8, 1), (1, 262144, 8, 0)])

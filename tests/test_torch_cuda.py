@@ -166,19 +166,23 @@ def test_lr_measure_global_adversarial(dev, B, N, D, seed):
     _same(lr_kernel.lr_measure(buf, doms, N), lr_kernel.lr_measure_plain(buf, doms, N))
 
 
-@pytest.mark.parametrize("N,S,M", [(4096, 1, 70), (4096, 2, 70), (98304, 32, 100),
-                                   (36864, 1, 3072)])
+@pytest.mark.parametrize("N,S,M", kernel_cases.LR_TILED_GEOMETRIES)
 def test_lr_measure_tiled_other_geometries(dev, N, S, M):
     """The tiled path where the block path's key has no room (more than 64
     slots) at windows that fit it, and the widest union of Default (64
     segments x 48 dominants), rows unaligned."""
-    rng = np.random.default_rng(M + S)
-    rows = [kernel_cases.lr_operands(kernel_cases.LR_PATTERNS[i % 6], rng, N, S, M)
-            for i in range(3)]
-    bufs = np.concatenate([np.stack([r[0] for r in rows]), np.zeros((3, 1), np.uint8)], axis=1)
-    doms = np.stack([r[1] for r in rows])
-    buf, d = torch.from_numpy(bufs).to(dev), torch.from_numpy(doms).to(dev)
+    buf, d = (torch.from_numpy(a).to(dev) for a in kernel_cases.lr_tiled_batch(N, S, M))
     _same(lr_kernel.lr_measure(buf, d, N), lr_kernel.lr_measure_plain(buf, d, N))
+
+
+def test_lr_measure_tiled_wide_keys(dev):
+    """One slot more than the 32-bit key takes at the widest window: the
+    64-bit keys; every slot ties over the whole window in the first row."""
+    N, S, M = kernel_cases.LR_WIDE_KEY_GEOMETRY
+    assert lr_kernel.tiled_key_bits(lr_kernel.window_words(N, S), M) == (32, 8)
+    buf, d = (torch.from_numpy(a).to(dev)
+              for a in kernel_cases.lr_tiled_batch(N, S, M, rows=2))
+    _same(lr_kernel.lr_measure(buf, d, N), lr_kernel.lr_measure_plain_sliced(buf, d, N, 512))
 
 
 @pytest.mark.parametrize("shift", [1, 2, 3])
@@ -190,6 +194,30 @@ def test_lr_measure_unaligned_rows(dev, shift):
     buf = np.concatenate([buf, rng.integers(1, 255, (4, shift), dtype=np.uint8)], axis=1)
     b, d = torch.from_numpy(buf).to(dev), torch.from_numpy(doms).to(dev)
     _same(lr_kernel.lr_measure(b, d, N), lr_kernel.lr_measure_plain(b, d, N))
+
+
+def unaligned(t):
+    """``t`` one element into a larger buffer: contiguous, not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.FIELD_CASES)
+def test_token_fields_adversarial(dev, B, E, nq, seed):
+    """The operands the CPU tests hold against the Pallas kernel, aligned
+    (16-byte loads) and each [B, E] operand one element in (scalar loads)."""
+    t = [torch.from_numpy(a).to(dev) for a in kernel_cases.field_batch(B, E, nq, seed)]
+    _same(field_kernel.token_fields(*t), field_kernel.token_fields_plain(*t))
+    u = [unaligned(a) if a.dim() == 2 else a for a in t]
+    assert u[1].data_ptr() % 16 == 4
+    _same(field_kernel.token_fields(*u), field_kernel.token_fields_plain(*u))
+
+
+@pytest.mark.parametrize("B,E,nq", kernel_cases.FIELD_ODD_SHAPES)
+def test_token_fields_odd_shapes(dev, B, E, nq):
+    t = [torch.from_numpy(a).to(dev) for a in kernel_cases.field_batch(B, E, nq, 2)]
+    _same(field_kernel.token_fields(*t), field_kernel.token_fields_plain(*t))
 
 
 @pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES + kernel_cases.HIST_CASES_WIDE)
@@ -236,3 +264,7 @@ def test_wrappers_refuse_unsupported_shapes(dev):
                              torch.ones((1, 8, 0), dtype=torch.int32, device=dev), 4096)
     with pytest.raises(ValueError):
         pm_kernel.lengths_by_rank(torch.ones((1, 30), dtype=torch.int32, device=dev), 17)
+    # token_fields: quarters of one position make a tile touch 64 quarters.
+    t = [torch.from_numpy(a).to(dev) for a in kernel_cases.field_batch(1, 64, 64, 0)]
+    with pytest.raises(ValueError):
+        field_kernel.token_fields(*t)

@@ -7,7 +7,9 @@ package's ``longrange.local_dominant_lengths`` (a few small ones also through
 port's ``local_dominant_lengths``.  As raw dominant rows through the port's
 plain twin ``lr_measure_plain`` and a byte-by-byte numpy measurement written
 here; a lane-for-lane numpy model of the CUDA kernel's algorithm is held
-against the twin too.  The histogram cases go through the JAX package's
+against the twin too, and so is one of the kernel's tiled path (its three
+passes over tiles and groups of live slots, its 32- and 64-bit winner keys).
+The histogram cases go through the JAX package's
 Pallas kernel in interpret mode, the port's twin and ``numpy.bincount``.
 Every value is an integer: tolerance 0 everywhere.  The card-side checks (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``) hold the CUDA kernels against the same twins
@@ -190,36 +192,54 @@ def measure_walk_model(bufs: np.ndarray, b: int, doms: np.ndarray, N: int):
     return run, dist, xn
 
 
-def measure_tiled_model(bufs: np.ndarray, b: int, doms: np.ndarray, N: int, tile: int):
-    """Row ``b``'s (run, dist, xor_next) by the kernel's tiled path, the two
-    passes modelled lane for lane with tiles of ``tile`` words (the kernel's
-    is ``kernel_cases.LR_TILE``).  Pass 1: per tile after the first and live
-    slot, the first mismatching window byte of the tile, from a forward scan
-    that stops at the first step with one.  Pass 2: per tile and live slot,
-    the carry is the least of those over the later tiles, and the walk
-    starts from it; winners are a maximum over run << 32 | ~slot (0 = none),
-    and the next tile's first word gets its key from the carry."""
+def pack_key(run, m, sb: int):
+    """The tiled path's winner key of slot ``m`` with a run of ``run`` bytes:
+    ``(run + 1) << sb | (2^sb - 1 - m)``, 0 for no winner."""
+    return ((np.asarray(run, np.int64) + 1) << sb) | ((1 << sb) - 1 - np.asarray(m, np.int64))
+
+
+def unpack_key(key, sb: int):
+    """(run, slot) of a key; run -1 and slot 0 where the key is 0."""
+    key = np.asarray(key, np.int64)
+    mask = (1 << sb) - 1
+    return np.where(key > 0, (key >> sb) - 1, -1), np.where(key > 0, mask - (key & mask), 0)
+
+
+def measure_tiled_model(bufs: np.ndarray, b: int, doms: np.ndarray, N: int, tile: int,
+                        group: int = 8, sb: int | None = None):
+    """Row ``b``'s (run, dist, xor_next) by the kernel's tiled path, its
+    three passes modelled lane for lane with tiles of ``tile`` words (the
+    kernel's is ``kernel_cases.LR_TILE``) and blocks of ``group`` live slots
+    (the kernel's are 8, 16 or 32, the most that still make 2,048 blocks),
+    ranked with the dead slots skipped.  Pass 1: per tile after the first and live slot, the first
+    mismatching window byte of the tile, from a forward scan that stops at
+    the first step with one.  Pass 2: per (tile, group), each slot's carry is
+    the least of those over the later tiles and its walk starts from it; the
+    block keeps a maximum per word of ``pack_key`` keys, with ``sb`` from
+    ``lr_kernel.tiled_key_bits`` unless given, and merges it into the row's
+    keys by a maximum per word.  Pass 3 unpacks the keys."""
     S, M = doms.shape
     L = N // S
     LW = kernel_cases.lr_window_words(N, S)
     tiles = -(-LW // tile)
+    width = 8
+    if sb is None:
+        sb, width = lr_kernel.tiled_key_bits(LW, M)
     row = RowWords(bufs, b)
     run = np.full((S, LW), -1, np.int64)
     dist = np.zeros((S, LW), np.int64)
     xn = np.zeros((S, LW), np.int64)
     for s in range(S):
-        if not (doms[s] > 0).any():
-            continue
+        live = [m for m in range(M) if doms[s, m] > 0]
+        groups = [live[i : i + group] for i in range(0, len(live), group)]
+        keys = np.zeros(LW, np.int64)
         first_of = np.full((M, tiles), -7, np.int64)  # pass 1's scratch
         for t in range(1, tiles):
             tw0, nw = t * tile, min(tile, LW - t * tile)
             pos0 = s * L + 4 * tw0
             base = row.word_at(pos0 + 4 * np.arange(nw))
-            for m in range(M):
-                d = int(doms[s, m])
-                if d <= 0:
-                    continue
-                q0 = pos0 - d + row.r
+            for m in live:
+                q0 = pos0 - int(doms[s, m]) + row.r
                 k0, sh = q0 >> 2, 8 * (q0 & 3)
                 found = 4 * LW
                 for w0 in range(0, nw, SPAN):
@@ -241,29 +261,29 @@ def measure_tiled_model(bufs: np.ndarray, b: int, doms: np.ndarray, N: int, tile
             steps = -(-nw // SPAN)
             pos0 = s * L + 4 * tw0
             base = row.word_at(pos0 + 4 * np.arange(steps * SPAN))
-            best = np.zeros(tile + 1, np.int64)
-            for m in range(M):
-                d = int(doms[s, m])
-                if d <= 0:
-                    continue
-                carry = min([4 * LW] + [int(first_of[m, u]) for u in range(t + 1, tiles)]) - 4 * tw0
+            for slots in groups:  # one block
+                best = np.zeros(steps * SPAN, np.int64)
+                for m in slots:
+                    carry = min([4 * LW] + [int(first_of[m, u])
+                                            for u in range(t + 1, tiles)]) - 4 * tw0
 
-                def update(w, first, tag=0xFFFFFFFF - m):
-                    best[w] = np.maximum(best[w], ((first - 4 * w) << 32) | tag)
+                    def update(w, first, m=m):
+                        key = pack_key(first - 4 * w, m, sb)
+                        best[w] = np.maximum(best[w], np.where(first >= 4 * w, key, 0))
 
-                if t + 1 < tiles:
-                    update(np.array([tile]), np.array([carry]))
-                q0 = pos0 - d + row.r
-                walk_model(row, q0 >> 2, 8 * (q0 & 3), base, 4 * (LW - tw0), carry, steps,
-                           update)
-            key = best[:nw]
-            nxt = np.where(tw0 + np.arange(nw) + 1 < LW, best[1 : nw + 1], 0)
-            slot = 0xFFFFFFFF - (key & 0xFFFFFFFF)
-            nslot = 0xFFFFFFFF - (nxt & 0xFFFFFFFF)
-            run[s, tw0 : tw0 + nw] = np.where(key > 0, key >> 32, -1)
-            dist[s, tw0 : tw0 + nw] = np.where(key > 0, doms[s][np.minimum(slot, M - 1)], 0)
-            xw = base[:nw] ^ row.word_at(pos0 + 4 * np.arange(nw) - doms[s][np.minimum(nslot, M - 1)])
-            xn[s, tw0 : tw0 + nw] = np.where(nxt > 0, xw, 0)
+                    q0 = pos0 - int(doms[s, m]) + row.r
+                    walk_model(row, q0 >> 2, 8 * (q0 & 3), base, 4 * (LW - tw0), carry, steps,
+                               update)
+                keys[tw0 : tw0 + nw] = np.maximum(keys[tw0 : tw0 + nw], best[:nw])
+        assert int(keys.max(initial=0)) < 1 << (8 * width)
+        r, slot = unpack_key(keys, sb)
+        run[s] = r
+        dist[s] = np.where(keys > 0, doms[s][np.minimum(slot, M - 1)], 0)
+        nxt = np.append(keys[1:], 0)
+        _, nslot = unpack_key(nxt, sb)
+        xw = row.word_at(s * L + 4 * np.arange(LW)) ^ row.word_at(
+            s * L + 4 * np.arange(LW) - doms[s][np.minimum(nslot, M - 1)])
+        xn[s] = np.where(nxt > 0, xw, 0)
     return run, dist, xn
 
 
@@ -320,7 +340,7 @@ def test_lr_global_ties_go_to_the_first_slot():
     """In the ``ties`` pattern two slots match the same region alike for more
     than 258 bytes, across a tile's edge; the earlier slot wins, whether its
     distance is the longer or the shorter."""
-    T = 4 * kernel_cases.LR_TILE
+    T = kernel_cases.LR_EDGE
     for N in (36864, 98304):
         bufs, doms = kernel_cases.lr_global_batch(1, N, 64, 7)
         assert kernel_cases.LR_GLOBAL_PATTERNS[7] == "ties"
@@ -333,13 +353,16 @@ def test_lr_global_ties_go_to_the_first_slot():
             assert int(dist[0, 0, w]) == int(doms[0, 0, slot])
 
 
+@pytest.mark.parametrize("keys", ["narrow", "wide"])
 @pytest.mark.parametrize("S", [1, 2])
 @pytest.mark.parametrize("seed", range(len(kernel_cases.LR_PATTERNS)))
-def test_lr_tiled_model_equals_plain(seed, S):
-    """The tiled path's two passes, modelled on the CPU with tiles of 256
+def test_lr_tiled_model_equals_plain(seed, S, keys):
+    """The tiled path's three passes, modelled on the CPU with tiles of 256
     words (5 tiles at S = 1, 3 a segment at S = 2) and 70 slots (more than
-    the block path's key holds), against the plain twin; three rows, each
-    with another byte alignment."""
+    the block path's key holds), in groups of 8, 16 or 32 live slots by the
+    seed (their maxima merged across blocks), against the plain twin, with
+    the 32-bit keys the geometry takes and with the 64-bit form; three rows,
+    each with another byte alignment."""
     N, M = 4096, 70
     rng = np.random.default_rng(40 + seed)
     rows = [kernel_cases.lr_operands(kernel_cases.LR_PATTERNS[(i + seed) % 6], rng, N, S, M)
@@ -348,24 +371,65 @@ def test_lr_tiled_model_equals_plain(seed, S):
     doms = np.stack([r[1] for r in rows])
     bufs = np.concatenate([bufs, rng.integers(1, 255, (3, seed % 4), dtype=np.uint8)], axis=1)
     want = lr_kernel.lr_measure_plain(torch.from_numpy(bufs), torch.from_numpy(doms), N)
+    assert lr_kernel.tiled_key_bits(kernel_cases.lr_window_words(N, S), M) == (7, 4)
+    sb = 32 if keys == "wide" else None
     for b in range(3):
-        for g, w in zip(measure_tiled_model(bufs, b, doms[b], N, 256), want):
+        for g, w in zip(measure_tiled_model(bufs, b, doms[b], N, 256, (8, 16, 32)[seed % 3],
+                                            sb), want):
             np.testing.assert_array_equal(g, w[b].numpy())
 
 
 @pytest.mark.parametrize("pattern", kernel_cases.LR_GLOBAL_PATTERNS[len(kernel_cases.LR_PATTERNS):])
 def test_lr_tiled_model_equals_plain_at_kernel_tile(pattern):
     """The whole-chunk patterns at the 4 KiB tier's window (9,283 words) and
-    the kernel's own tile (2,048 words): the first eight slots of each row,
-    which hold the pattern's distances."""
+    the kernel's own tile (1,024 words): the first twelve slots of each row,
+    which hold the pattern's distances (two groups, the second partial)."""
     N = 36864
     bufs, doms = kernel_cases.lr_global_batch(
         1, N, 64, kernel_cases.LR_GLOBAL_PATTERNS.index(pattern))
-    few = np.ascontiguousarray(doms[0, :, :8])
+    few = np.ascontiguousarray(doms[0, :, :12])
     want = lr_kernel.lr_measure_plain(torch.from_numpy(bufs), torch.from_numpy(few[None]), N)
     assert int((want[0] > 258).sum()) > 0
     for g, w in zip(measure_tiled_model(bufs, 0, few, N, kernel_cases.LR_TILE), want):
         np.testing.assert_array_equal(g, w[0].numpy())
+
+
+def test_lr_tiled_key_extremes():
+    """The 32-bit key at its extremes: the longest run of the widest window
+    (a 256 KiB chunk with its history, as one segment) with slot 0 and with
+    the last slot the 32-bit form takes there; one slot more takes 64 bits.
+    The order holds: a longer run wins, then the lower slot."""
+    LW = kernel_cases.lr_window_words(294912, 1)
+    assert LW == 73795
+    sb, width = lr_kernel.tiled_key_bits(LW, 64)
+    assert (sb, width) == (6, 4)
+    top = 1 << (32 - (4 * LW + 1).bit_length())  # the most slots of the 32-bit form
+    assert top == 8192
+    assert lr_kernel.tiled_key_bits(LW, top) == (13, 4)
+    assert lr_kernel.tiled_key_bits(LW, top + 1) == (32, 8)
+    for M in (64, top):
+        sb = lr_kernel.tiled_key_bits(LW, M)[0]
+        keys = pack_key([4 * LW, 4 * LW, 4 * LW - 1, 0, 0], [0, M - 1, 0, 0, M - 1], sb)
+        assert int(keys.max()) < 1 << 32 and int(keys.min()) > 0
+        np.testing.assert_array_equal(unpack_key(keys, sb)[0], [4 * LW, 4 * LW, 4 * LW - 1, 0, 0])
+        np.testing.assert_array_equal(unpack_key(keys, sb)[1], [0, M - 1, 0, 0, M - 1])
+        assert keys[0] > keys[1] > keys[2] > keys[3] > keys[4]
+    wide = pack_key([4 * LW, 0], [top, top], 32)
+    np.testing.assert_array_equal(unpack_key(wide, 32)[0], [4 * LW, 0])
+    np.testing.assert_array_equal(unpack_key(wide, 32)[1], [top, top])
+    assert unpack_key(0, 13)[0] == -1
+
+
+@pytest.mark.parametrize("step", [1, 7, 64])
+@pytest.mark.parametrize("N,S,M", kernel_cases.LR_TILED_GEOMETRIES[:2])
+def test_lr_plain_sliced_equals_plain(N, S, M, step):
+    """The plain version a few slots at a time (the card checks the 64-bit
+    keys' geometry with it) equals the whole: ties across slices go to the
+    earlier slice, and word w's XOR follows the winner of word w + 1."""
+    buf, doms = (torch.from_numpy(a) for a in kernel_cases.lr_tiled_batch(N, S, M))
+    want = lr_kernel.lr_measure_plain(buf, doms, N)
+    for g, w in zip(lr_kernel.lr_measure_plain_sliced(buf, doms, N, step), want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 def _local_lengths_both(buf, doms, N, S, M, sel):
