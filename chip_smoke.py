@@ -49,10 +49,13 @@ Phases (each prints a line; any failure exits non-zero):
    every kernel's launch counter must move during the timed high run.
 
 5. kernels, wide: all five kernels against their plain versions on operands
-   harvested from a Default run over 8 chunks of 262,144 bytes (the widest
-   chunk the corpus engine takes; ``parse_scan`` then walks four windows a
-   chunk and ``lr_measure`` windows of 1,219 words), exact equality, with
-   time, bound and share; then the adversarial operands at that width.
+   harvested from a Default run over 8 chunks of 262,144 bytes
+   (``parse_scan`` then walks four windows a chunk and ``lr_measure``
+   windows of 1,219 words; 1 MiB chunks are phase 16's), exact equality,
+   with time, bound and share; then the adversarial operands at that width
+   and at 1 MiB (``kernel_cases``' ``*_MIB`` and ``*_GRANULE`` cases: 16
+   windows and partial segments of ``parse_scan``, high's local pass on the
+   tiled path, rows of 1 MiB and of 4,112 positions).
 6. corpus: ``compress_corpus`` on the 16 MiB mix.  Its bytes must equal
    ``compress_stream(..., pipelined=False)``'s (the chunk-batch engine) on the
    card and the CPU port's on the first 1 MiB; the zlib and gzip forms and
@@ -133,6 +136,20 @@ Phases (each prints a line; any failure exits non-zero):
 15. margins: ``tools/contract_margins.py`` at 128 KiB for Default and high
    (CUDA bytes equal the CPU port's and round-trip) and at 512 and 1,024 KiB
    (round trips); every class's margin under the contract's ceiling.
+16. chunks: ``compress_corpus`` on a 64 MiB mix (a full default batch of 1
+   MiB chunks) at ``chunk_size`` 65,536, 262,144, 524,288 and 1,048,576 with
+   Default and 65,536 and 1,048,576 with high: round trip through zlib, CUDA
+   bytes equal to the CPU port's on the first 2 MiB, warm MB/s (median and
+   spread of three runs), the ratio beside the 64 KiB run's, the peak
+   ``max_memory_allocated`` and the batches; every kernel's launch counter
+   must move, the tiled path of ``lr_measure`` (and not its block path) at
+   high's 1 MiB.  fast, rle and turbo at 4,112 bytes on the first 4 MiB:
+   CUDA bytes equal the CPU port's.  Each size at which the JAX package fails
+   (and 1 MiB + 256) raises ``ValueError`` at the entry, no kernel launched.
+   The kernels at the first batch of the 1 MiB runs (all five at Default,
+   the tiled path at high) and ``parse_scan`` at fast's 4,112 bytes: exact
+   equality with the plain versions (``lr_measure``'s two rows at a time),
+   graph-replay time, bound and share.
 
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
@@ -312,23 +329,28 @@ def unaligned(t):
     return flat[1:].view(t.shape)
 
 
-def wide_buffers(mix: bytes):
-    """The encoder's operands for ``WIDE_BATCH`` chunks of ``WIDE_EMIT`` bytes
-    of the mix, each with the 32 KiB before it."""
+def emit_buffers(data: bytes, emit: int, batch: int):
+    """The encoder's operands for the first ``batch`` chunks of ``emit`` bytes
+    of ``data`` (all full, none the last), each with the 32 KiB before it."""
     import numpy as np
 
     from deflate_rs_tpu_torch.ops.chunk_encode import PAD
 
-    src = np.frombuffer(mix, np.uint8)
-    bufs = np.zeros((WIDE_BATCH, HALO + WIDE_EMIT + PAD), np.uint8)
-    hist = np.zeros(WIDE_BATCH, np.int64)
-    for i in range(WIDE_BATCH):
-        off = i * WIDE_EMIT
+    src = np.frombuffer(data, np.uint8)
+    bufs = np.zeros((batch, HALO + emit + PAD), np.uint8)
+    hist = np.zeros(batch, np.int64)
+    for i in range(batch):
+        off = i * emit
         h = min(off, HALO)
-        bufs[i, HALO - h : HALO + WIDE_EMIT] = src[off - h : off + WIDE_EMIT]
+        bufs[i, HALO - h : HALO + emit] = src[off - h : off + emit]
         hist[i] = h
-    return (bufs, hist, np.full(WIDE_BATCH, WIDE_EMIT, np.int64),
-            np.zeros(WIDE_BATCH, bool))
+    return bufs, hist, np.full(batch, emit, np.int64), np.zeros(batch, bool)
+
+
+def wide_buffers(mix: bytes):
+    """The encoder's operands for ``WIDE_BATCH`` chunks of ``WIDE_EMIT`` bytes
+    of the mix, each with the 32 KiB before it."""
+    return emit_buffers(mix, WIDE_EMIT, WIDE_BATCH)
 
 
 def stream_through(cls, data: bytes, write_size: int, flush_every: int = 0, **kw) -> bytes:
@@ -356,13 +378,14 @@ def spread(values: list) -> str:
             f"{v[3 * len(v) // 4]:.3f} max {v[-1]:.3f}")
 
 
-TILED = "lr_measure_tiled"  # lr_measure's tiled path: the lr_global pass only
+TILED = "lr_measure_tiled"  # lr_measure's tiled path: lr_global, and high from 679,680 B chunks
 
 
 def check_launches(label: str, counts: dict, off_path: tuple = (TILED,)) -> None:
     """Every kernel must have launched on the path, but those ``off_path``,
-    which must not have (the presets' long-range windows all fit the block
-    path, so the tiled one is off every knob-free path)."""
+    which must not have (the presets' long-range windows fit the block path
+    below high's chunks of 679,680 bytes, so the tiled one is off every
+    knob-free path at 64 KiB)."""
     missing = [k for k, v in counts.items() if v == 0 and k not in off_path]
     stray = [k for k in off_path if counts.get(k)]
     if missing or stray:
@@ -662,6 +685,19 @@ def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes
     return counts
 
 
+def lr_plain_rows(args, step: int = 16):
+    """``lr_measure``'s plain version a few rows at a time (its [B, S, M, LW]
+    temporaries are large); rows are independent."""
+    import torch
+
+    from deflate_rs_tpu_torch.ops import lr_kernel
+
+    buf, doms, N = args
+    parts = [lr_kernel.lr_measure_plain(buf[i : i + step], doms[i : i + step], N)
+             for i in range(0, buf.shape[0], step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
     """The long-range knobs ``lr_global`` and ``lr_stride``: CUDA bytes equal
     the CPU port's; ``lr_measure`` at the whole-chunk window (its tiled path)
@@ -696,14 +732,6 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
                   "CUDA bytes == CPU port bytes, round-trip")
 
     # lr_measure at the global pass's operands: S = 1, M = D.
-    def plain_rows(args, step=16):
-        """The plain version a few rows at a time (its [B, 1, M, LW] temporaries
-        are large); rows are independent."""
-        buf, doms, N = args
-        parts = [lr_kernel.lr_measure_plain(buf[i : i + step], doms[i : i + step], N)
-                 for i in range(0, buf.shape[0], step)]
-        return tuple(torch.cat(p) for p in zip(*parts))
-
     kb = corpus.BATCH_SIZE
     t64 = tier_buffers(mix, 65536, kb)
     sets = {
@@ -721,7 +749,7 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
         if tuple(doms.shape[1:]) != (1, D):
             raise SystemExit(f"knobs: the global pass handed lr_measure {tuple(doms.shape)}")
         got = lr_kernel.lr_measure(*args)
-        want = plain_rows(args)
+        want = lr_plain_rows(args)
         torch.cuda.synchronize()
         err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -735,7 +763,7 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
             continue
         k_ms = kernel_ms(lambda: lr_kernel.lr_measure(*args))
         e_ms = cuda_ms(lambda: lr_kernel.lr_measure(*args), 20)
-        p_ms = cuda_ms(lambda: plain_rows(args), 2)
+        p_ms = cuda_ms(lambda: lr_plain_rows(args), 2)
         bytes_ms, ops_ms = bound_of("lr_measure", args, got)
         bound = max(bytes_ms, ops_ms)
         res[key] = {"ms": k_ms, "eager_ms": e_ms, "plain_ms": p_ms, "bytes_ms": bytes_ms,
@@ -923,6 +951,188 @@ def margins_phase() -> None:
               + (", CUDA bytes == CPU port bytes" if compare else "")
               + f"; classes skipped (no files on this machine): {skipped or 'none'}")
     print(f"margins: {time.perf_counter() - t0:.1f} s")
+
+
+CHUNKS_MIX_BYTES = 64 << 20  # a full default batch of 1 MiB chunks
+# (preset, chunk size): the corpus engine on the 64 MiB mix; the 64 KiB runs
+# are the baseline of each preset's ratio and MB/s.
+CHUNK_RUNS = (("default", 65536), ("default", 262144), ("default", 524288),
+              ("default", 1048576), ("high", 65536), ("high", 1048576))
+SMALL_CHUNK_RUNS = ("fast", "rle", "turbo")  # at 4,112 B on the mix's first 4 MiB
+SMALL_EMIT = 4112
+# (preset, chunk size) at which the JAX package's compress_corpus fails, and
+# the cap: each must raise ValueError at the entry.
+REFUSED = tuple((p, E) for p in ("default", "high", "ForceFixed", "ForceStored")
+                for E in (4112, 8208)) + (("default", (1 << 20) + 256),)
+
+
+def _preset(dt, name: str):
+    O = dt.CompressionOptions
+    if name.startswith("Force"):
+        return O(special=getattr(dt.SpecialOptions, name))
+    return getattr(O, name)()
+
+
+def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
+    """The corpus engine at the chunk sizes above 64 KiB and at 4,112 bytes.
+
+    On a 64 MiB mix, ``compress_corpus`` at each of ``CHUNK_RUNS``: a warm
+    run and three timed ones (MB/s median and spread, launch counters set to
+    0 just before each and read after; every kernel of the path must move,
+    the tiled path of ``lr_measure`` at high's 1 MiB and not its block path),
+    the stream round-trips through zlib, CUDA bytes equal the CPU port's on
+    the first 2 MiB, the peak ``max_memory_allocated`` of the four runs, the
+    batches and the ratio beside the 64 KiB run's.  fast, rle and turbo at
+    4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU port's.  The
+    sizes at which the JAX package fails raise ``ValueError`` at the entry,
+    with no kernel launched.  Then the kernels at the first batch of the 1
+    MiB runs (Default's, and high's for the tiled path) and of fast's at
+    4,112 bytes, against their plain versions, exact, with graph-replay time
+    and bound.  Returns (launches by run, kernel rows by key)."""
+    import dataclasses
+
+    import torch
+
+    from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
+                                          pm_kernel)
+    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+    from deflate_rs_tpu_torch.parallel import corpus
+    from deflate_rs_tpu_torch.utils.mix import build_mix
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mix = build_mix(CHUNKS_MIX_BYTES, pg11)
+    mb = len(mix) / 1e6
+    head = mix[: 2 << 20]
+    launches, base = {}, {}
+    for preset, E in CHUNK_RUNS:
+        o = _preset(dt, preset)
+        label = f"chunks: {preset} chunk_size={E}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = corpus.compress_corpus(mix, o, chunk_size=E, device="cuda")  # warm
+        rates = []
+        for _ in range(3):
+            cuda.reset_launches()
+            res, wall = wall_of(lambda: corpus.compress_corpus(mix, o, chunk_size=E,
+                                                               device="cuda"))
+            counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+            if res.deflate != first.deflate:
+                raise SystemExit(f"{label}: bytes changed between runs")
+            rates.append(mb / wall)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if zlib.decompress(first.deflate, -15) != mix:
+            raise SystemExit(f"{label}: the stream does not round-trip")
+        if E != 65536 and (corpus.compress_corpus(head, o, chunk_size=E, device="cuda").deflate
+                           != corpus.compress_corpus(head, o, chunk_size=E, device="cpu").deflate):
+            raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's on mix[:2 MiB]")
+        tiled = lr_kernel.window_words(HALO + E, o.resolved_dom_segs) > lr_kernel.MAX_WINDOW_WORDS
+        check_launches(label, counts, off_path=("lr_measure",) if tiled else (TILED,))
+        ratio = len(first.deflate) / len(mix)
+        base.setdefault(preset, ratio)
+        launches[preset, E] = counts
+        print(f"{label}: {len(mix) >> 20} MiB mix round-trips at ratio {ratio:.5f} (64 KiB chunks: "
+              f"{base[preset]:.5f}); {first.fetched['batches']} batches of "
+              f"{corpus.BATCH_SIZE} chunks; peak max_memory_allocated {peak:.3f} GiB; warm MB/s "
+              f"{spread(rates)}"
+              + ("" if E == 65536 else "; CUDA bytes == CPU port bytes on mix[:2 MiB]")
+              + f"; launches of the last timed run {counts}", flush=True)
+    quarter = mix[: 4 << 20]
+    for preset in SMALL_CHUNK_RUNS:
+        o = _preset(dt, preset)
+        cuda.reset_launches()
+        got, wall = wall_of(lambda: corpus.compress_corpus(quarter, o, chunk_size=SMALL_EMIT,
+                                                           device="cuda"))
+        counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+        if got.deflate != corpus.compress_corpus(quarter, o, chunk_size=SMALL_EMIT,
+                                                 device="cpu").deflate:
+            raise SystemExit(f"chunks: {preset} chunk_size={SMALL_EMIT}: CUDA bytes differ from "
+                             "the CPU port's on mix[:4 MiB]")
+        if zlib.decompress(got.deflate, -15) != quarter:
+            raise SystemExit(f"chunks: {preset} chunk_size={SMALL_EMIT}: does not round-trip")
+        check_launches(f"chunks: {preset} chunk_size={SMALL_EMIT}", counts,
+                       off_path=("lr_measure", TILED))
+        launches[preset, SMALL_EMIT] = counts
+        print(f"chunks: {preset} chunk_size={SMALL_EMIT}: mix[:4 MiB] ratio "
+              f"{len(got.deflate) / len(quarter):.5f}, CUDA bytes == CPU port bytes, "
+              f"{len(quarter) / 1e6 / wall:.2f} MB/s (one run, cold); launches {counts}",
+              flush=True)
+    for preset, E in REFUSED:
+        cuda.reset_launches()
+        try:
+            corpus.compress_corpus(mix[:100_000], _preset(dt, preset), chunk_size=E,
+                                   device="cuda")
+        except ValueError as e:
+            if any(k.launches for k in cuda.KERNELS.values()):
+                raise SystemExit(f"chunks: {preset} chunk_size={E} launched before refusing")
+            print(f"chunks: {preset} chunk_size={E} refused at the entry: {e}")
+        else:
+            raise SystemExit(f"chunks: {preset} chunk_size={E} was taken; the JAX package "
+                             "fails there")
+
+    # Kernels at the first batch of the 1 MiB runs and of fast's 4,112 B run.
+    kern = {"lr_measure": lambda a: lr_kernel.lr_measure(*a),
+            "parse_scan": lambda a: parse_scan.parse_scan(*a),
+            "token_fields": lambda a: field_kernel.token_fields(*a),
+            "lengths_by_rank": lambda a: pm_kernel.lengths_by_rank(*a),
+            "quarter_hist": lambda a: hist_kernel.quarter_histograms(*a)}
+    plain = {"lr_measure": lambda a: lr_plain_rows(a, 2),
+             "parse_scan": lambda a: parse_scan.parse_scan_plain(*a),
+             "token_fields": lambda a: field_kernel.token_fields_plain(*a),
+             "lengths_by_rank": lambda a: pm_kernel.lengths_by_rank_plain(*a),
+             "quarter_hist": lambda a: hist_kernel.quarter_histograms_plain(*a)}
+    # (row key, preset, chunk size, recorded wrapper, which of its calls)
+    sets = [("mib", "default", 1 << 20, "lr_measure", "lr_measure"),
+            ("mib", "default", 1 << 20, "parse_scan", "parse_scan"),
+            ("mib", "default", 1 << 20, "token_fields", "token_fields"),
+            ("mib", "default", 1 << 20, "lengths_by_rank_15", "lengths_by_rank"),
+            ("mib", "default", 1 << 20, "lengths_by_rank_7", "lengths_by_rank"),
+            ("mib", "default", 1 << 20, "quarter_histograms", "quarter_hist"),
+            ("high_mib", "high", 1 << 20, "lr_measure", "lr_measure"),
+            ("granule", "fast", SMALL_EMIT, "parse_scan", "parse_scan")]
+    rows, seen = {}, {}
+    for row_key, preset, E, rec, name in sets:
+        if (preset, E) not in seen:
+            seen.clear()
+            torch.cuda.empty_cache()
+            o = dataclasses.replace(_preset(dt, preset), chain_scale=max(1, E // 65536))
+            bufs, hist, ns, last = (torch.from_numpy(a) for a in
+                                    emit_buffers(mix, E, corpus.BATCH_SIZE))
+            with torch.no_grad():
+                seen[preset, E] = harvest(ChunkEncoder(o, E).to(dev), bufs.to(dev), hist, ns,
+                                          last)
+        args = seen[preset, E][rec]
+        got = kern[name](args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain[name](args)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        if err != 0:
+            raise SystemExit(f"chunks: kernel {name} disagrees with its plain version at "
+                             f"{preset} chunk_size={E}: max_abs_err={err}")
+        k_ms = kernel_ms(lambda: kern[name](args), reps=5)
+        p_ms = cuda_ms(lambda: plain[name](args), 1)
+        bytes_ms, ops_ms = bound_of(name if name != "lengths_by_rank" else rec, args, got)
+        bound = max(bytes_ms, ops_ms)
+        path = (" (tiled path)" if name == "lr_measure" and lr_kernel.window_words(
+            args[2], args[1].shape[1]) > lr_kernel.MAX_WINDOW_WORDS else "")
+        shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        print(f"kernel {rec}{path} ({preset}, chunks) emit={E} shapes={shapes}: max_abs_err=0 "
+              f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bound:.5f} ms (bytes "
+              f"{bytes_ms:.5f}, operations {ops_ms:.5f}) share {100 * bound / k_ms:.1f} %",
+              flush=True)
+        r = rows.setdefault((row_key, name), {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0})
+        r["ms"] += k_ms
+        r["plain_ms"] += p_ms
+        r["bound_ms"] += bound
+    seen.clear()
+    torch.cuda.empty_cache()
+    print(f"chunks: phase took {time.perf_counter() - t0:.1f} s")
+    return launches, rows
 
 
 def main() -> int:
@@ -1241,12 +1451,46 @@ def main() -> int:
                 hist_kernel.quarter_histograms(*a, nq),
                 hist_kernel.quarter_histograms_plain(*a, nq))):
             raise SystemExit(f"quarter_hist disagrees on the wide case B={B} E={E} nq={nq}")
+    # The chunk sizes above 256 KiB and the multiples of 16 that are no
+    # multiple of 64: partial segments and 16 windows of parse_scan, high's
+    # local pass on lr_measure's tiled path, rows of 1 MiB and of 4,112.
+    parse_sets = ([(c, kernel_cases.parse_scan_batch(*c, kernel_cases.parse_payloads_granule))
+                   for c in kernel_cases.PARSE_CASES_GRANULE]
+                  + [(c, kernel_cases.parse_scan_batch_wide(*c))
+                     for c in kernel_cases.PARSE_CASES_WIDE_GRANULE + kernel_cases.PARSE_CASES_MIB])
+    for case, (steps, n) in parse_sets:
+        st, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+        if not torch.equal(parse_scan.parse_scan(st, nn), parse_scan.parse_scan_plain(st, nn)):
+            raise SystemExit(f"parse_scan disagrees on the case (E, B, seed) = {case}")
+    for B, S, N, seed in kernel_cases.LR_CASES_MIB:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.lr_measure_batch(B, S, N, seed))
+        if not all(torch.equal(g, w) for g, w in zip(lr_kernel.lr_measure(*a, N),
+                                                     lr_kernel.lr_measure_plain(*a, N))):
+            raise SystemExit(f"lr_measure disagrees on the case B={B} S={S} N={N} seed={seed}")
+    for B, E, nq, seed in kernel_cases.HIST_CASES_GRANULE:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.hist_batch(B, E, seed))
+        for form in (lambda x: x, unaligned):
+            if not all(torch.equal(g, w) for g, w in zip(
+                    hist_kernel.quarter_histograms(*map(form, a), nq),
+                    hist_kernel.quarter_histograms_plain(*map(form, a), nq))):
+                raise SystemExit(f"quarter_hist disagrees on the case B={B} E={E} nq={nq}")
+    for case in kernel_cases.FIELD_CASES_GRANULE:
+        a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.field_batch(*case))
+        for args in (a, tuple(unaligned(x) if x.dim() == 2 else x for x in a)):
+            if not all(torch.equal(g, w) for g, w in zip(field_kernel.token_fields(*args),
+                                                         field_kernel.token_fields_plain(*args))):
+                raise SystemExit(f"token_fields disagrees on the case {case}")
+    del a
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"kernels, wide: adversarial cases equal the plain versions exactly: parse_scan "
-          f"{len(kernel_cases.PARSE_CASES_WIDE)}, lr_measure {len(kernel_cases.LR_CASES_WIDE)}, "
-          f"quarter_hist {len(kernel_cases.HIST_CASES_WIDE)}; phase done at "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"{len(kernel_cases.PARSE_CASES_WIDE)} wide, {len(parse_sets)} at partial segments "
+          f"and 1 MiB; lr_measure {len(kernel_cases.LR_CASES_WIDE)} wide, "
+          f"{len(kernel_cases.LR_CASES_MIB)} at 512 KiB and 1 MiB; quarter_hist "
+          f"{len(kernel_cases.HIST_CASES_WIDE)} wide, {len(kernel_cases.HIST_CASES_GRANULE)} at "
+          f"1 MiB and 4,112 (aligned and one element in); token_fields "
+          f"{len(kernel_cases.FIELD_CASES_GRANULE)} at 1 MiB and 4,112 (both forms); phase done "
+          f"at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------------- corpus
     mb = len(mix) / 1e6
@@ -1449,6 +1693,10 @@ def main() -> int:
     margins_phase()
     print(f"margins: phase done at {time.perf_counter() - t_start:.1f} s")
 
+    # ------------------------------------------------------------- chunks
+    chunk_launches, chunk_rows = chunks_phase(dt, cuda, pg11, wall_of)
+    print(f"chunks: phase done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {
         "lr_measure": ("deflate_rs_tpu_torch/csrc/lr_measure.cu", "deflate_rs_tpu/ops/lr_kernel.py:84",
                        ["lr_measure", "lr_measure_s32"], ["lr_measure"]),
@@ -1465,6 +1713,11 @@ def main() -> int:
                          ["quarter_hist_nq8", "quarter_hist_nq1", "quarter_hist_nq4"],
                          ["quarter_hist_nq8"]),
     }
+    mib = chunk_launches["default", 1 << 20]
+    high_mib = chunk_launches["high", 1 << 20]
+    chunk_key = {"lr_measure": "lr_measure", "parse_scan": "parse_scan",
+                 "package_merge": "lengths_by_rank", "token_fields": "token_fields",
+                 "quarter_hist": "quarter_hist"}
     rows = []
     for name, (src, rep, checked, timed) in sources.items():
         # A batch of Default calls every key of ``timed`` once: the sums are
@@ -1503,7 +1756,15 @@ def main() -> int:
             "bound_ms": sum(max(results[k]["bytes_ms"], results[k]["ops_ms"]) for k in timed),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None if None in lib else sum(lib),
+            "launches_chunks_mib": mib[name],
+            "launches_chunks_high_mib": high_mib[name],
+            "mib_batch": corpus.BATCH_SIZE,
+            **{f"mib_{k}": v for k, v in chunk_rows["mib", chunk_key[name]].items()},
         })
+        if name == "parse_scan":
+            rows[-1].update({f"granule_{k}": v for k, v in chunk_rows["granule", name].items()})
+    global_row["launches_chunks_high_mib"] = high_mib[TILED]
+    global_row.update({f"high_mib_{k}": v for k, v in chunk_rows["high_mib", "lr_measure"].items()})
     rows.append(global_row)
     high_pm = results["lengths_by_rank_15_high"]
     print(f"package_merge at high's shape: kernel {high_pm['ms']:.4f} ms plain "
@@ -1523,7 +1784,13 @@ def main() -> int:
           "lr_global=64 run (launches_high: high's), ms to bound_ms at 64 chunks on Default's "
           "global operands at D = 64 (live: their live slots), b1_* at one chunk, d256_* at "
           "D = 256, high_* on high's, wide_* at 8 chunks of 262,144 bytes; mb_per_s of three "
-          "Default lr_global=64 runs and mb_per_s_no_knob of three knob-free ones, in turns")
+          "Default lr_global=64 runs and mb_per_s_no_knob of three knob-free ones, in turns. "
+          "chunks phase: launches_chunks_mib and launches_chunks_high_mib of the timed Default "
+          "and high compress_corpus runs at 1 MiB chunks on the 64 MiB mix; mib_ms, "
+          "mib_plain_ms, mib_bound_ms at the first batch of Default's 1 MiB run "
+          f"({corpus.BATCH_SIZE} chunks); granule_* at fast's {SMALL_EMIT} B chunks; the "
+          "lr_measure_global row's high_mib_* at high's 1 MiB chunks, its local pass on the "
+          "tiled path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ Ported so far: the one-shot API at every preset (Default, high, fast, rle,
 huffman_only, turbo) and both force modes; the streaming encoders
 (``write.DeflateEncoder``, ``write.ZlibEncoder``, ``write.gzip.GzEncoder``);
 the batched corpus engine (``parallel.corpus.compress_corpus`` and its zlib
-and gzip forms, chunk sizes up to 256 KiB) with its used-prefix compaction;
+and gzip forms, every chunk size the JAX package encodes up to 1 MiB) with
+its used-prefix compaction;
 the device checksums (``ops.checksum``); both decoders, the host oracle
 (``inflate``, ``inflate_zlib``, ``inflate_gzip``) and the device validator
 (``ops.inflate_device.inflate_device``); and the multi-GPU sharded encoder

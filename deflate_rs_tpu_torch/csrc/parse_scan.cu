@@ -7,11 +7,15 @@
 // The parse is the orbit of position 0 under next[i] = i + steps[i], cut at
 // n.  One block per chunk; the chunk is cut into segments of 64 positions,
 // one thread each, so a segment's marks are one 64-bit word that only its
-// thread writes.  A chunk wider than 65,536 positions (1,024 segments, what
-// a block's threads and shared memory hold) is parsed in windows of that
-// width, one after the other in the same block: a window's true parse enters
-// where the last token of the window before it lands, and that entry takes
-// the place of "position 0" below.
+// thread writes.  The chunk width is any multiple of 16 (the JAX package's
+// rule): a window whose width is no multiple of 64 ends in a partial segment
+// of 16, 32 or 48 positions, which its thread loads, walks and stores as
+// far as the window goes (the walks stop at the payload's end, which lies
+// inside the window).  A chunk wider than 65,536 positions (1,024 segments,
+// what a block's threads and shared memory hold) is parsed in windows of
+// that width, one after the other in the same block: a window's true parse
+// enters where the last token of the window before it lands, and that entry
+// takes the place of "position 0" below.
 //
 // Bound on the card: bytes.  The function reads 4 B and writes 1 B per
 // position (10.5 MB at 32 chunks of 64 KiB, about 3 us at 3.35 TB/s); the
@@ -98,22 +102,22 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
     return (nibble * 0x00204081u) & 0x01010101u;
 }
 
-// min(E, kWindow) / 64 threads, rounded up to whole warps; thread t holds
-// segment t of the window in hand.  kWide: the chunk has more than one
+// ceil(min(E, kWindow) / 64) threads, rounded up to whole warps; thread t
+// holds segment t of the window in hand.  kWide: the chunk has more than one
 // window; a chunk of one window compiles without the loop and the hand-over.
 template <bool kWide>
 __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __restrict__ ns,
                                   int E, bool* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ int carry_out;    // the next window's entry, relative to its start
-    const Smem s = carve(smem_raw, min(E, kWindow) / kSeg);
+    const Smem s = carve(smem_raw, (min(E, kWindow) + kSeg - 1) / kSeg);
     const int t = threadIdx.x;
     const int b = blockIdx.x;
     int carry = 0;               // this window's entry (0 for the chunk's first)
 
   for (int base = 0; base < (kWide ? E : 1); base += kWindow) {
     const int EW = kWide ? min(kWindow, E - base) : E;   // positions of this window
-    const int S = EW / kSeg;
+    const int S = (EW + kSeg - 1) / kSeg;    // the last one partial where EW % 64 != 0
     const int n = ns[b] - base;              // payload left from the window's start
     const bool live = t < S;
     if (n <= 0) {
@@ -126,9 +130,13 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
     // ------------------------------------------------------------- load
     if (live) {
         const int4* src = reinterpret_cast<const int4*>(steps + (size_t)b * E + base);
+        const int nv = EW / 4;                 // int4 of the window (EW % 16 == 0)
         int4 v[16];
 #pragma unroll
-        for (int k = 0; k < 16; ++k) v[k] = src[t + k * S];
+        for (int k = 0; k < 16; ++k) {
+            // Past a partial segment's end: never read (walks stop at n <= EW).
+            v[k] = t + k * S < nv ? src[t + k * S] : make_int4(1, 1, 1, 1);
+        }
 #pragma unroll
         for (int k = 0; k < 16; ++k) {
             const int i = t + k * S;       // 16 int4 per segment
@@ -294,8 +302,8 @@ __global__ void parse_scan_kernel(const int* __restrict__ steps, const int* __re
 extern "C" int parse_scan(const int* steps, const int* ns, int B, int E, bool* out,
                           cudaStream_t stream) {
     if (B <= 0) return 0;
-    if (E <= 0 || E % kSeg) return (int)cudaErrorInvalidValue;
-    const int S = (E < kWindow ? E : kWindow) / kSeg;
+    if (E <= 0 || E % 16) return (int)cudaErrorInvalidValue;
+    const int S = ((E < kWindow ? E : kWindow) + kSeg - 1) / kSeg;
     const size_t shmem = smem_bytes(S);
     auto kernel = E > kWindow ? parse_scan_kernel<true> : parse_scan_kernel<false>;
     cudaError_t err = cudaFuncSetAttribute(

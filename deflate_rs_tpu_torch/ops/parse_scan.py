@@ -4,8 +4,9 @@ Replaces the Pallas kernel ``deflate_rs_tpu/ops/parse_scan.py::_kernel``
 (entry ``parse_scan_batched``).  The sequential parse of a chunk is the
 orbit of position 0 under ``next[i] = i + steps[i]``, cut at the payload
 length ``n``.  The CUDA kernel (``csrc/parse_scan.cu``) cuts the chunk into
-segments of 64 positions, one thread each (a chunk wider than 65,536
-positions in windows of that width, one after the other): every segment parses
+segments of 64 positions, one thread each, the last one partial where the
+width is no multiple of 64 (a chunk wider than 65,536 positions in windows
+of that width, one after the other): every segment parses
 hypothetically from its own first position, then again, speculatively, from
 the previous segment's hypothesis exit until it meets a hypothesis token
 (after which the two parses coincide); one thread then repairs, serially,
@@ -45,13 +46,13 @@ def parse_scan(steps: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
     Args:
       steps: int32[B, E] jump steps (1 literal, match length otherwise;
-        1 <= steps <= 258).
+        1 <= steps <= 258); E a multiple of 16, as the Pallas kernel's.
       n: int32[B] payload lengths (tokens only at positions < n).
     """
     if not steps.is_cuda:
         return parse_scan_plain(steps, n)
     B, E = steps.shape
-    if E % 256:
+    if E <= 0 or E % 16:
         raise ValueError(f"parse_scan: unsupported chunk width E={E}")
     cuda.check_cuda(steps, "steps", torch.int32, (B, E))
     cuda.check_cuda(n, "n", torch.int32, (B,))

@@ -5,17 +5,25 @@ The JAX encoder scores split compositions with per-symbol code lengths
 (``deflate_rs_tpu/ops/chunk_encode.py``, ``_proxy_bits``).  Away from exact
 powers of two, ``log2(tot / f)`` lies far enough from an integer for float32
 to round it the right way, so the exact integer count of
-:func:`proxy_code_lengths` agrees.  At ``tot == f << k`` XLA's ``log2``
-rounds up to ``k + 1`` for some pairs (f, k) and not for others.
+:func:`proxy_code_lengths` agrees.  Near ``tot == f << k`` it need not:
 
-Those pairs are held in a committed table, ``data/proxy_roundup.npy``: one
-bit per (k, f) with ``1 <= k <= 14`` and ``f << k <= TOT_MAX``, rows of
-increasing k, f from 1, packed with ``numpy.packbits``.  A set bit says the
-JAX form gives ``k + 1`` at ``tot == f << k``.  The table was generated from
-the JAX expression itself, in the encoder's ``[R, 286]`` jit form;
-``tests/test_torch_proxy.py`` regenerates it and compares (run that file as
-a script to rewrite it).  The lookup is integer work, so every device gives
-the same lengths.
+- at ``tot == f << k`` XLA's ``log2`` rounds up to ``k + 1`` for some pairs
+  (f, k) and not for others;
+- at ``tot == (f << k) - 1`` it gives ``k + 1`` for some pairs, and at
+  ``tot == (f << k) + 1`` it gives ``k`` for some, where the exact counts
+  are ``k`` and ``k + 1`` (none below a total of 647,681; none at two or
+  more from ``f << k``).
+
+Those pairs are held in committed tables, one bit per (k, f) with
+``1 <= k <= 14`` and ``f << k <= TOT_MAX``, rows of increasing k, f from 1,
+packed with ``numpy.packbits``: ``data/proxy_roundup.npy`` for the exact
+ratios (a set bit says the JAX form gives ``k + 1`` at ``tot == f << k``),
+``data/proxy_neighbours.npy`` for the two neighbours (two such rows of
+bits: the JAX form gives ``k + 1`` at ``(f << k) - 1``, and ``k`` at
+``(f << k) + 1``).  The tables were generated from the JAX expression
+itself, in the encoder's ``[R, 286]`` jit form; ``tests/test_torch_proxy.py``
+regenerates them and compares (run that file as a script to rewrite them).
+The lookup is integer work, so every device gives the same lengths.
 """
 
 from __future__ import annotations
@@ -27,17 +35,24 @@ import torch
 
 from ..constants import MAX_CODE_LENGTH
 
-TABLE_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                          "data", "proxy_roundup.npy")
-# Largest symbol total a range histogram reaches: the 262,144 tokens of the
-# widest chunk the corpus engine takes, plus EOB, with margin.
-TOT_MAX = 262209
-K_MAX = MAX_CODE_LENGTH - 1  # at k = 15 the clip hides any round-up
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+TABLE_PATH = os.path.join(DATA_DIR, "proxy_roundup.npy")
+NEIGHBOURS_PATH = os.path.join(DATA_DIR, "proxy_neighbours.npy")
+# Largest symbol total a range histogram reaches: the 1,048,576 tokens of the
+# widest chunk the corpus engine takes (``parallel/corpus.py``:
+# ``MAX_CHUNK_SIZE``), plus EOB, with margin.
+TOT_MAX = 1048641
+K_MAX = MAX_CODE_LENGTH - 1  # at k = 15 the clip hides any rounding
 
 
 def table_rows() -> list:
-    """(k, number of f values) per row of the round-up table."""
+    """(k, number of f values) per row of a table."""
     return [(k, TOT_MAX >> k) for k in range(1, K_MAX + 1)]
+
+
+def table_size() -> int:
+    """Entries of one table."""
+    return sum(c for _, c in table_rows())
 
 
 def row_offsets() -> np.ndarray:
@@ -51,37 +66,58 @@ def row_offsets() -> np.ndarray:
 
 
 def load_roundup_table() -> np.ndarray:
-    """The committed table as a flat bool array (see the module docstring)."""
-    total = sum(c for _, c in table_rows())
-    return np.unpackbits(np.load(TABLE_PATH), count=total).astype(bool)
+    """The exact-ratio table as a flat bool array (see the module docstring)."""
+    return np.unpackbits(np.load(TABLE_PATH), count=table_size()).astype(bool)
 
 
-def proxy_code_lengths(tot: torch.Tensor, f: torch.Tensor, roundup: torch.Tensor,
+def load_neighbour_tables() -> np.ndarray:
+    """bool[2, table_size()]: the tables of ``(f << k) - 1`` and ``(f << k) + 1``."""
+    packed = np.load(NEIGHBOURS_PATH)
+    return np.stack([np.unpackbits(row, count=table_size()).astype(bool) for row in packed])
+
+
+def load_tables() -> np.ndarray:
+    """bool[3, table_size()]: the exact-ratio table, then the two neighbours'
+    (the operand ``tables`` of :func:`proxy_code_lengths`)."""
+    return np.concatenate([load_roundup_table()[None], load_neighbour_tables()])
+
+
+def _on_table(tot, f, k, plane, tables, offsets):
+    """Bit ``plane`` of ``tables`` at (k, f) where ``f << k == tot`` is an
+    entry of the tables, else False."""
+    kc = k.clamp(1, K_MAX)
+    hit = (k >= 1) & (k <= K_MAX) & ((f << kc) == tot) & (tot <= TOT_MAX)
+    flat = (offsets[kc] + f - 1).clamp(0, tables.shape[1] - 1)
+    return hit & tables[plane][flat]
+
+
+def proxy_code_lengths(tot: torch.Tensor, f: torch.Tensor, tables: torch.Tensor,
                        offsets: torch.Tensor) -> torch.Tensor:
     """Proxy code lengths of frequencies ``f`` in a histogram of total ``tot``.
 
     The exact ``clip(ceil(log2(tot / f)), 1, 15)`` (the count of k >= 0 with
     ``f << k < tot``), plus one where the JAX float32 form rounds an exact
-    power-of-two ratio up.  ``roundup``/``offsets`` come from
-    :func:`load_roundup_table` / :func:`row_offsets`.
+    power-of-two ratio or the total just below it up, minus one where it
+    rounds the total just above it down.  ``tables``/``offsets`` come from
+    :func:`load_tables` / :func:`row_offsets`.
     """
     tot = tot.clamp(min=1)
     f = f.clamp(min=1)
     k = torch.zeros_like(f)
     for s in range(MAX_CODE_LENGTH):
         k += (f << s) < tot
-    on_row = (k >= 1) & (k <= K_MAX)
-    kc = k.clamp(1, K_MAX)
-    hit = on_row & ((f << kc) == tot) & (tot <= TOT_MAX)
-    flat = (offsets[kc] + f - 1).clamp(0, roundup.shape[0] - 1)
-    up = hit & roundup[flat]
-    return (k + up.long()).clamp(1, MAX_CODE_LENGTH)
+    # tot == f << k, or tot == (f << k) - 1: the exact count is k.
+    up = (_on_table(tot, f, k, 0, tables, offsets)
+          | _on_table(tot + 1, f, k, 1, tables, offsets))
+    # tot == (f << (k - 1)) + 1: the exact count is k.
+    down = _on_table(tot - 1, f, k - 1, 2, tables, offsets)
+    return (k + up.long() - down.long()).clamp(1, MAX_CODE_LENGTH)
 
 
-def proxy_bits(freq: torch.Tensor, roundup: torch.Tensor, offsets: torch.Tensor):
+def proxy_bits(freq: torch.Tensor, tables: torch.Tensor, offsets: torch.Tensor):
     """(token bits, used symbols, zero-run starts) of histograms ``freq``
     int64[..., A], summed over the last axis (``_proxy_bits``)."""
-    lens = proxy_code_lengths(freq.sum(dim=-1, keepdim=True), freq, roundup, offsets)
+    lens = proxy_code_lengths(freq.sum(dim=-1, keepdim=True), freq, tables, offsets)
     bits = torch.where(freq > 0, freq * lens, 0).sum(dim=-1)
     used = freq > 0
     prev = torch.nn.functional.pad(used[..., :-1], (1, 0))

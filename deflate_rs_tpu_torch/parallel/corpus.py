@@ -55,11 +55,20 @@ from ..runtime import native
 # 64 chunks a batch ran at 50-61 MB/s against 33-52 at 32 and 15-26 at 16.
 # Queue depths 1 and 3 read alike at every batch size (a deeper queue is
 # unproven there), so the depth is the one that pins the least staging memory.
+# The batch holds at every chunk size: 64 chunks of 1 MiB peak at about 18 GiB
+# of device memory at Default and at high (``tools/corpus_memory.py`` and
+# ``chip_smoke.py``, PERF.md section 6), the memory growing with the bytes of
+# a batch.
 BATCH_SIZE = 64
 QUEUE_DEPTH = 1
 
-CHUNK_GRANULE = 256
-MAX_CHUNK_SIZE = 262_144
+# Chunk sizes: multiples of 16 (the JAX package's rule, from the row count
+# its parse kernel reshapes the emit region to) up to 1 MiB, the widest chunk
+# whose range totals the block-split proxy's rounding tables cover
+# (``ops/proxy.py``: ``TOT_MAX``).  The presets add rules of their own; see
+# ``check_chunk_size``.
+CHUNK_GRANULE = 16
+MAX_CHUNK_SIZE = 1 << 20
 
 # Pipelines kept between calls, over all configurations together: each pins
 # ``queue_depth + 1`` staging and result buffers of a whole batch.
@@ -77,15 +86,43 @@ class CorpusResult(StreamResult):
         self.fetched = fetched
 
 
-def check_chunk_size(E: int) -> None:
-    """Raise ``ValueError`` unless ``E`` is a chunk size the encoder takes."""
-    if E <= 0 or E % CHUNK_GRANULE or E > MAX_CHUNK_SIZE:
+def check_chunk_size(E: int, options: CompressionOptions) -> None:
+    """Raise ``ValueError`` unless the encoder takes chunks of ``E`` bytes at
+    the resolved ``options``: exactly the sizes up to ``MAX_CHUNK_SIZE`` at
+    which the JAX package's ``compress_corpus`` gives a stream."""
+    if E <= 0 or E % CHUNK_GRANULE:
         raise ValueError(
-            f"chunk_size must be a positive multiple of {CHUNK_GRANULE} up to "
-            f"{MAX_CHUNK_SIZE}, got {E}: the long-range measure cuts a chunk and its "
-            "32 KiB of history into 64 segments of whole 4-byte words, the parse "
-            "kernel walks segments of 64 positions, and the block-split proxy's "
-            "table covers the symbol totals of chunks up to that size")
+            f"chunk_size must be a positive multiple of {CHUNK_GRANULE}, got {E}: the "
+            f"JAX package's parse kernel reshapes a chunk into {CHUNK_GRANULE} rows")
+    if E > MAX_CHUNK_SIZE:
+        raise ValueError(
+            f"chunk_size must be at most {MAX_CHUNK_SIZE}, got {E}: the block-split "
+            "proxy's rounding tables cover the symbol totals of chunks up to that size")
+    nq = options.num_quarters
+    if E % nq:
+        raise ValueError(
+            f"chunk_size {E} must divide by the {nq} quarters of these options' block "
+            "split: the split scores quarters of equal length")
+    if options.matcher_mode != "hash" or not options.use_long_range:
+        return
+    N, S = HALO + E, options.resolved_dom_segs
+    if options.lr_global:
+        if N % S or (options.resolved_lr_pair and N // S % 2):
+            raise ValueError(
+                f"chunk_size {E} plus its {HALO} bytes of history must divide into the "
+                f"{S} harvest segments of the long-range pass"
+                + (", each of an even length (the harvest takes positions in pairs)"
+                   if options.resolved_lr_pair else ""))
+    elif N % (4 * S):
+        raise ValueError(
+            f"chunk_size {E} plus its {HALO} bytes of history must divide by {4 * S}: "
+            f"the long-range pass measures {S} segments of whole 4-byte words")
+    row = N // S // 2 if options.resolved_lr_pair else -(-(N // S) // options.resolved_lr_stride)
+    if row >= 1 << 15:
+        raise ValueError(
+            f"chunk_size {E}: the long-range pass's dominant-selection rows of {row} "
+            "harvested positions overflow its packed freq << 16 sort; raise dom_segs or "
+            "lr_stride")
 
 
 class FlatCorpusEncoder(nn.Module):
@@ -309,15 +346,16 @@ def compress_corpus(
 
     ``chunk_size`` is the per-chunk block granularity (the analogue of
     pigz's block size); the default is the one-shot path's 64 KiB and gives
-    its bytes exactly.  Larger chunks (up to 262,144) spread the fixed 32 KiB
-    of history and the per-chunk tables over more payload.  The suffix-order
+    its bytes exactly.  Larger chunks (up to 1 MiB) spread the fixed 32 KiB
+    of history and the per-chunk tables over more payload; the sizes taken
+    are those of :func:`check_chunk_size` at ``options``.  The suffix-order
     matcher's candidate neighbourhoods dilute as the chunk grows, so the
     chain budget is scaled with the chunk size, as in the JAX package.
     """
     options = _resolve(options or CompressionOptions.default())
     n = len(data)
     E = int(_deflate.FULL_EMIT if chunk_size is None else chunk_size)
-    check_chunk_size(E)
+    check_chunk_size(E, options)
     if batch_size < 1 or queue_depth < 1:
         raise ValueError(f"batch_size and queue_depth must be positive, got {batch_size}, "
                          f"{queue_depth}")

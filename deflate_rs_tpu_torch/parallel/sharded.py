@@ -36,6 +36,7 @@ from ..models.assembly import BitAssembler, splice_encoded_chunk
 from ..ops.chunk_encode import ChunkEncoder
 from ..ops.compaction import compact_words_device, used_words_device, used_words_host
 from ..runtime import native
+from .corpus import check_chunk_size
 from .mesh import Mesh, local_chunk_range
 
 
@@ -67,7 +68,11 @@ def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int
       compact=True:  cw: uint32, the used words of the shard's chunks, in
                      row order (``used_words_host`` counts them)
       compact=False: words: uint32[local_b, NW] whole per-chunk word rows
+
+    ``emit_size`` must be a chunk size the corpus engine takes at ``options``
+    (``corpus.check_chunk_size``); anything else raises ``ValueError`` here.
     """
+    check_chunk_size(emit_size, options)
     encoder = ChunkEncoder(options, emit_size, with_checksums=True,
                            # Compact mode never reads stored chunks' device
                            # words; leaving their fields out shrinks the pack.

@@ -133,12 +133,16 @@ def _dryrun_rank(mesh, emit: int, chunks_per_device: int, out_path: str) -> dict
 def dryrun_multichip(n: int, *, emit: int = 65536, chunks_per_device: int = 4,
                      device="cuda") -> dict:
     """Run the dry run over ``n`` ranks and check it; returns a summary.
-    Raises ``RuntimeError`` when a check fails."""
+    Raises ``RuntimeError`` when a check fails, and ``ValueError`` before
+    any rank starts where the sharded encoder does not take chunks of
+    ``emit`` bytes at Default (``corpus.check_chunk_size``)."""
     from .. import constants as C
+    from ..compression_options import CompressionOptions
     from ..ops.compaction import used_words_host
-    from ..parallel.corpus import compress_corpus
+    from ..parallel.corpus import check_chunk_size, compress_corpus
     from ..parallel.sharded import assemble_host
 
+    check_chunk_size(emit, CompressionOptions.default())
     if torch.device(device).type == "cuda":
         if torch.cuda.device_count() < n:
             raise RuntimeError(f"need {n} CUDA devices, have {torch.cuda.device_count()}")

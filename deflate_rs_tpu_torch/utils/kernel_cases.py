@@ -12,7 +12,9 @@ past its end, dead, holed, duplicated and full dominant rows; and at the
 whole-chunk window of one segment (the tiled path), runs that cross tiles or
 go on to the window's end and equal long runs at two slots.
 ``quarter_hist``: one symbol everywhere, nothing in range, negatives, the
-bins' edges.  ``token_fields``: symbols on either side of both tables' ends
+bins' edges.  Every kernel also at the chunk sizes the JAX package encodes
+beyond 256 KiB (1 MiB) and at multiples of 16 that are no multiple of 64
+(4,112 bytes).  ``token_fields``: symbols on either side of both tables' ends
 and negative ones, table widths of 0, 15, 32 and more and below 0, extra
 values with bits above their width, stored rows.  This module builds such operands with numpy from a seed, so
 that the CPU tests (against the JAX package and the plain twins) and the
@@ -76,11 +78,12 @@ def parse_payloads(E: int) -> list:
     return [E, 0, E - 1, 1, E // 2 + 37, SEG + 1, E - SEG - 5]
 
 
-def parse_scan_batch(E: int, B: int, seed: int = 0):
+def parse_scan_batch(E: int, B: int, seed: int = 0, payloads=parse_payloads):
     """``(steps int32[B, E], n int32[B])``: row ``r`` has pattern
-    ``(r + seed) % 6`` and payload ``(r + seed) % 7`` of the lists above."""
+    ``(r + seed) % 6`` and payload ``(r + seed) % 7`` of the lists above
+    (``payloads(E)`` gives the payload list)."""
     rng = np.random.default_rng(1000 * seed + E + B)
-    ns = parse_payloads(E)
+    ns = payloads(E)
     steps = np.stack([parse_steps(PARSE_PATTERNS[(r + seed) % len(PARSE_PATTERNS)], rng, E)
                       for r in range(B)])
     n = np.array([ns[(r + seed) % len(ns)] for r in range(B)], np.int32)
@@ -121,6 +124,25 @@ def parse_scan_batch_wide(E: int, B: int, seed: int = 0):
 
 # (E, B, seed): two and four windows; every pattern and every payload once.
 PARSE_CASES_WIDE = [(131072, 6, 0), (262144, 6, 1), (262144, 8, 3), (196608, 2, 4)]
+
+
+def parse_payloads_granule(E: int) -> list:
+    """Payload lengths of a chunk whose width is no multiple of 64 (one
+    window whose last segment holds ``E % 64`` positions): the ends, inside
+    that segment, at its start and just before it."""
+    tail = E % SEG
+    return [E, E - 7, E - tail, E - tail - 1, 0, E // 2 + 37, SEG + 1]
+
+
+# (E, B, seed) of parse_scan_batch with parse_payloads_granule: the chunk
+# sizes that are multiples of 16 and not of 64, in one window (the fast, rle and turbo presets' 4,112 and 8,208 bytes, a last
+# segment of 16 positions; 4,128 and 4,144, of 32 and 48); every pattern,
+# runs of 258 and the serial repair included, at every payload once.
+PARSE_CASES_GRANULE = [(4112, 7, 0), (4112, 7, 3), (8208, 7, 1), (4128, 7, 2), (4144, 7, 4)]
+# (E, B, seed) of parse_scan_batch_wide: 65,552 (a last window of one
+# segment of 16 positions) and 1 MiB (16 windows), every pattern and payload.
+PARSE_CASES_WIDE_GRANULE = [(65552, 8, 0), (65552, 6, 5)]
+PARSE_CASES_MIB = [(1048576, 8, 0)]
 
 
 def sorted_leaves(freqs: np.ndarray) -> np.ndarray:
@@ -327,6 +349,13 @@ LR_CASES = ([(1, S, N, seed) for S, N in ((64, 98304), (32, 98304), (64, 36864))
 # and 2,371 words).
 LR_CASES_WIDE = ([(1, 64, 294912, seed) for seed in range(len(LR_PATTERNS))]
                  + [(1, 32, 294912, 1), (1, 32, 163840, 4), (3, 64, 163840, 2)])
+# (B, S, N, seed): chunks of 512 KiB and 1 MiB with their history at Default's
+# 64 segments (windows of 2,243 and 4,291 words: the block path) and a 1 MiB
+# chunk at high's 32 (8,515 words, more than a block holds: the tiled path
+# on a preset's main path).
+LR_CASES_MIB = ([(1, 64, 1081344, seed) for seed in range(len(LR_PATTERNS))]
+                + [(2, 64, 557056, 1)]
+                + [(1, 32, 1081344, seed) for seed in range(len(LR_PATTERNS))])
 
 
 # ---------------------------------------------- lr_measure, whole-chunk window
@@ -429,9 +458,11 @@ LR_GLOBAL_CASES = ([(1, 36864, D, seed) for D in (64, 256)
 
 
 # (N, S, M): the tiled path where the block path's key has no room (more than
-# 64 slots) at windows that fit it, and the widest union of Default (64
-# segments x 48 dominants) at the 4 KiB tier's whole-chunk window.
-LR_TILED_GEOMETRIES = [(4096, 1, 70), (4096, 2, 70), (98304, 32, 100), (36864, 1, 3072)]
+# 64 slots) at windows that fit it, the widest union of Default (64
+# segments x 48 dominants) at the 4 KiB tier's whole-chunk window, and high's
+# local pass at a 1 MiB chunk (32 segments of 8,515 words).
+LR_TILED_GEOMETRIES = [(4096, 1, 70), (4096, 2, 70), (98304, 32, 100), (36864, 1, 3072),
+                       (1081344, 32, 48)]
 # The 64-bit winner keys: one slot more than the 32-bit form takes at the
 # widest window (a 256 KiB chunk with its history as one segment).
 LR_WIDE_KEY_GEOMETRY = (294912, 1, 8193)
@@ -489,6 +520,12 @@ def hist_batch(B: int, E: int, seed: int = 0):
 # (B, E, nq, seed): one chunk in every pattern and a batch past 32, in both
 # tiers, at every number of quarters a preset uses.
 HIST_CASES_WIDE = [(2, 262144, nq, seed) for nq, seed in ((1, 0), (4, 1), (8, 2), (8, 4))]
+# (B, E, nq, seed): rows of 1 MiB at every preset's quarters, and 4,112
+# positions at nq 1 and 4 (fast and turbo, rle: quarters of 1,028 positions,
+# still read with 16-byte loads).
+HIST_CASES_GRANULE = ([(2, 1048576, nq, seed) for nq, seed in ((1, 0), (4, 1), (8, 2))]
+                      + [(B, 4112, nq, seed) for B, nq, seed in ((1, 1, 0), (5, 1, 3),
+                                                                 (1, 4, 1), (5, 4, 4))])
 HIST_CASES = ([(1, E, nq, seed) for E in (4096, 65536) for nq in (1, 2, 4, 8)
                for seed in range(len(HIST_PATTERNS))]
               + [(33, E, nq, 0) for E in (4096, 65536) for nq in (1, 2, 4, 8)])
@@ -563,3 +600,8 @@ FIELD_ODD_SHAPES = [(2, 4098, 2), (3, 6000, 3), (1, 12, 4), (2, 65536, 32)]
 FIELD_CASES = ([(1, E, nq, seed) for E in (4096, 65536)
                 for seed, nq in enumerate((1, 2, 4, 8, 32))]
                + [(3, 4096, 8, 1), (1, 262144, 8, 0)])
+# (B, E, nq, seed): rows of 1 MiB at Default's 8 quarters and fast's 1, and
+# 4,112 positions at nq 1 and 4 (quarters of 1,028 positions; the card also
+# checks them one element into their buffers, on the scalar path).
+FIELD_CASES_GRANULE = [(1, 1048576, 8, 0), (1, 1048576, 1, 1), (5, 4112, 1, 2),
+                       (5, 4112, 4, 3)]

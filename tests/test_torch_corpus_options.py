@@ -1,6 +1,8 @@
 """The corpus engine's options against the JAX engine's bytes: chunk sizes
 other than 64 and 256 KiB, batch sizes and queue depths, other presets, the
-chunk-size rule at the entry, and the pg11 size pin.  Tolerance: exact
+chunk-size rule at the entry, and the pg11 size pin.  The chunk sizes above
+256 KiB and below 32 KiB that are no multiples of 256 are in
+``tests/test_torch_chunk_sizes.py`` and ``tests/test_torch_chunk_grid*.py``.  Tolerance: exact
 equality.  The engine's main cases are in ``tests/test_torch_corpus.py``.
 """
 
@@ -54,9 +56,16 @@ def test_corpus_presets_equal_jax(preset):
     assert zlib.decompress(got.deflate, wbits=-15) == data
 
 
-@pytest.mark.parametrize("chunk_size", [0, -256, 100, 65536 + 16, 4096 + 128, 524_288])
-def test_bad_chunk_size_raises_at_the_entry(chunk_size):
-    with pytest.raises(ValueError, match="multiple of 256"):
+@pytest.mark.parametrize("chunk_size,match", [
+    (0, "positive multiple of 16"), (-256, "positive multiple of 16"),
+    (100, "positive multiple of 16"),
+    # Default's long-range pass: a chunk and its 32 KiB of history in 64
+    # segments of whole 4-byte words.
+    (65536 + 16, "must divide by 256"), (4096 + 128, "must divide by 256"),
+    (4112, "must divide by 256"),
+    (1_048_576 + 256, "at most 1048576")])
+def test_bad_chunk_size_raises_at_the_entry(chunk_size, match):
+    with pytest.raises(ValueError, match=match):
         tcorpus.compress_corpus(b"abc", chunk_size=chunk_size, **CPU)
 
 

@@ -251,8 +251,8 @@ def test_package_merge_past_the_limit(dev, max_len, A):
 
 
 def test_wrappers_refuse_unsupported_shapes(dev):
-    with pytest.raises(ValueError):
-        parse_scan.parse_scan(torch.ones((1, 4096 + 64), dtype=torch.int32, device=dev),
+    with pytest.raises(ValueError):  # a width that is no multiple of 16
+        parse_scan.parse_scan(torch.ones((1, 4096 + 8), dtype=torch.int32, device=dev),
                               torch.ones(1, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):  # N not a multiple of 4 * S
         lr_kernel.lr_measure(torch.zeros((1, 32768 + 72), dtype=torch.uint8, device=dev),
@@ -268,3 +268,56 @@ def test_wrappers_refuse_unsupported_shapes(dev):
     t = [torch.from_numpy(a).to(dev) for a in kernel_cases.field_batch(1, 64, 64, 0)]
     with pytest.raises(ValueError):
         field_kernel.token_fields(*t)
+
+
+
+# The chunk sizes of the corpus engine beyond 256 KiB (1 MiB) and the
+# multiples of 16 that are no multiple of 64 (4,112 bytes and its kin).
+
+@pytest.mark.parametrize("E,B,seed", kernel_cases.PARSE_CASES_GRANULE)
+def test_parse_scan_partial_segment(dev, E, B, seed):
+    """A last segment of 16, 32 or 48 positions in one window."""
+    steps, n = kernel_cases.parse_scan_batch(E, B, seed, kernel_cases.parse_payloads_granule)
+    s, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+    _same(parse_scan.parse_scan(s, nn), parse_scan.parse_scan_plain(s, nn))
+
+
+@pytest.mark.parametrize("E,B,seed", kernel_cases.PARSE_CASES_WIDE_GRANULE
+                         + kernel_cases.PARSE_CASES_MIB)
+def test_parse_scan_partial_window_and_16_windows(dev, E, B, seed):
+    """A last window of one 16-position segment (65,552) and 16 windows."""
+    steps, n = kernel_cases.parse_scan_batch_wide(E, B, seed)
+    s, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+    _same(parse_scan.parse_scan(s, nn), parse_scan.parse_scan_plain(s, nn))
+
+
+@pytest.mark.parametrize("B,S,N,seed", kernel_cases.LR_CASES_MIB)
+def test_lr_measure_adversarial_mib(dev, B, S, N, seed):
+    """Default's block path at 512 KiB and 1 MiB chunks, high's tiled path
+    at 1 MiB (the launch the counters show)."""
+    buf, doms = (torch.from_numpy(a).to(dev) for a in kernel_cases.lr_measure_batch(B, S, N, seed))
+    tiled = lr_kernel.window_words(N, S) > lr_kernel.MAX_WINDOW_WORDS
+    assert tiled == (S == 32)
+    before = lr_kernel._TILED.launches
+    _same(lr_kernel.lr_measure(buf, doms, N), lr_kernel.lr_measure_plain(buf, doms, N))
+    assert (lr_kernel._TILED.launches > before) == tiled
+
+
+@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.FIELD_CASES_GRANULE)
+def test_token_fields_granule(dev, B, E, nq, seed):
+    """Rows of 1 MiB and of 4,112 positions, aligned and one element in."""
+    t = [torch.from_numpy(a).to(dev) for a in kernel_cases.field_batch(B, E, nq, seed)]
+    _same(field_kernel.token_fields(*t), field_kernel.token_fields_plain(*t))
+    u = [unaligned(a) if a.dim() == 2 else a for a in t]
+    _same(field_kernel.token_fields(*u), field_kernel.token_fields_plain(*u))
+
+
+@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES_GRANULE)
+def test_quarter_hist_granule(dev, B, E, nq, seed):
+    """Rows of 1 MiB and of 4,112 positions (quarters of 1,028 at nq = 4),
+    aligned and one element in (scalar loads)."""
+    ls, dc = (torch.from_numpy(a).to(dev) for a in kernel_cases.hist_batch(B, E, seed))
+    for form in (lambda x: x, unaligned):
+        a, b = form(ls), form(dc)
+        _same(hist_kernel.quarter_histograms(a, b, nq),
+              hist_kernel.quarter_histograms_plain(a, b, nq))

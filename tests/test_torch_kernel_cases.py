@@ -493,3 +493,53 @@ def test_quarter_hist_cases_equal_jax_kernel(B, E, nq, seed):
                 lf[b, q].numpy(), np.bincount(ls[(ls >= 0) & (ls < 286)], minlength=286))
             np.testing.assert_array_equal(
                 df[b, q].numpy(), np.bincount(dc[(dc >= 0) & (dc < 30)], minlength=30))
+
+
+@pytest.mark.parametrize("B,E,nq,seed", kernel_cases.HIST_CASES_GRANULE)
+def test_quarter_hist_granule_cases_equal_bincount(B, E, nq, seed):
+    """Rows of 1 MiB (also against the Pallas kernel in interpret mode) and
+    of 4,112 positions, which the Pallas kernel does not take (it wants
+    E % (128 nq) == 0; the JAX encoder counts such chunks without it)."""
+    lsym, dcode = kernel_cases.hist_batch(B, E, seed)
+    lf, df = hist_kernel.quarter_histograms(torch.from_numpy(lsym), torch.from_numpy(dcode), nq)
+    if E % (128 * nq) == 0:
+        lf_j, df_j = quarter_histograms_batched(jnp.asarray(lsym), jnp.asarray(dcode), nq,
+                                                interpret=True)
+        np.testing.assert_array_equal(lf.numpy(), np.asarray(lf_j))
+        np.testing.assert_array_equal(df.numpy(), np.asarray(df_j))
+    QL = E // nq
+    for b in range(B):
+        for q in range(nq):
+            ls = lsym[b, q * QL : (q + 1) * QL]
+            dc = dcode[b, q * QL : (q + 1) * QL]
+            np.testing.assert_array_equal(
+                lf[b, q].numpy(), np.bincount(ls[(ls >= 0) & (ls < 286)], minlength=286))
+            np.testing.assert_array_equal(
+                df[b, q].numpy(), np.bincount(dc[(dc >= 0) & (dc < 30)], minlength=30))
+
+
+@pytest.mark.parametrize("S,seed", [(64, 0), (64, 2), (32, 1), (32, 3)])
+def test_lr_models_equal_plain_at_1mib(S, seed):
+    """A 1 MiB chunk with its history: Default's 64 segments (windows of
+    4,291 words) through the block path's model, high's 32 (8,515 words,
+    more than a block holds) through the tiled path's, with the kernel's
+    tile and groups of 16.  Three segments of the row (the first, one with
+    holes, the last), against the plain version taken 8 slots at a time and
+    the byte-by-byte measurement."""
+    N = 1081344
+    assert kernel_cases.lr_window_words(N, S) == {64: 4291, 32: 8515}[S]
+    assert (N, S, 48) in kernel_cases.LR_TILED_GEOMETRIES or S == 64
+    bufs, doms = kernel_cases.lr_measure_batch(1, S, N, seed)
+    few = np.zeros_like(doms[0])
+    keep = [0, 5, S - 1]
+    few[keep] = doms[0][keep]
+    want = lr_kernel.lr_measure_plain_sliced(torch.from_numpy(bufs), torch.from_numpy(few[None]),
+                                             N, 8)
+    for g, w in zip(want, measure_bytewise(bufs[0], few, N)):
+        np.testing.assert_array_equal(g[0].numpy(), w)
+    if S == 64:
+        model = measure_walk_model(bufs, 0, few, N)
+    else:
+        model = measure_tiled_model(bufs, 0, few, N, kernel_cases.LR_TILE, 16)
+    for g, w in zip(model, want):
+        np.testing.assert_array_equal(g, w[0].numpy())

@@ -112,9 +112,11 @@ def speculative_parse_model(steps, n, rounds, carry=0):
     up to 65,536 positions): hypotheses, ``rounds`` rounds of speculative
     re-walks (the kernel ships one), then the serial repair, which has to be
     right after any number of rounds.  The true parse enters at ``carry``
-    (0 for a chunk's first window; ``rounds`` >= 1 otherwise)."""
+    (0 for a chunk's first window; ``rounds`` >= 1 otherwise).  A width that
+    is no multiple of 64 ends in a partial segment, walked as far as the
+    payload goes (``n <= E``)."""
     E = len(steps)
-    S = E // SEG
+    S = -(-E // SEG)
     steps = steps.tolist()
     hyp, hexit = [0] * S, [0] * S
     for s in range(S):  # phase 1: hypothesis parse of every segment
@@ -178,7 +180,8 @@ def speculative_parse_model(steps, n, rounds, carry=0):
     for s in range(S):
         keep = 0 if conv[s] >= SEG else (~0 << conv[s]) & ((1 << SEG) - 1)
         m = fix[s] | (hyp[s] & keep)
-        out[s * SEG:(s + 1) * SEG] = [(m >> o) & 1 for o in range(SEG)]
+        width = min(SEG, E - s * SEG)
+        out[s * SEG : s * SEG + width] = [(m >> o) & 1 for o in range(width)]
     return out
 
 
@@ -262,3 +265,46 @@ def test_windowed_model_small_windows(E, B, seed, window):
     for b in range(B):
         np.testing.assert_array_equal(windowed_parse_model(steps[b], int(ns[b]), window),
                                       serial_parse(steps[b], ns[b]), err_msg=f"row {b}")
+
+
+# ---------------------------------------------------------------------------
+# Chunk widths that are multiples of 16 and not of 64 (the kernel's last
+# segment of a window holds 16, 32 or 48 positions), and 1 MiB (16 windows).
+# ---------------------------------------------------------------------------
+
+from deflate_rs_tpu_torch.utils.kernel_cases import (  # noqa: E402
+    PARSE_CASES_GRANULE, PARSE_CASES_MIB, PARSE_CASES_WIDE_GRANULE, parse_payloads_granule)
+
+
+@pytest.mark.parametrize("E,B,seed", PARSE_CASES_GRANULE)
+def test_granule_parse_equals_jax_kernel_and_model(E, B, seed):
+    """Tolerance 0 (booleans): the plain twin against the Pallas kernel in
+    interpret mode (which reshapes the chunk into 16 rows of E / 16 lanes),
+    the serial walk and the CUDA kernel's algorithm, every row."""
+    steps, ns = parse_scan_batch(E, B, seed, parse_payloads_granule)
+    got = _plain(steps, ns)
+    np.testing.assert_array_equal(got, np.asarray(parse_scan_batched(steps, ns, interpret=True)))
+    for b in range(B):
+        np.testing.assert_array_equal(got[b], serial_parse(steps[b], ns[b]), err_msg=f"row {b}")
+        np.testing.assert_array_equal(speculative_parse_model(steps[b], int(ns[b]), 1), got[b],
+                                      err_msg=f"row {b}")
+
+
+@pytest.mark.parametrize("E,B,seed", PARSE_CASES_WIDE_GRANULE + PARSE_CASES_MIB)
+def test_wide_granule_parse_equals_jax_and_model(E, B, seed):
+    """A last window of one 16-position segment (65,552) and 16 windows
+    (1 MiB): the plain twin against ``parse.reachable`` and the serial walk
+    on every row, the windowed model of the CUDA kernel on the first six
+    (every pattern)."""
+    steps, ns = parse_scan_batch_wide(E, B, seed)
+    got = _plain(steps, ns)
+    pos = jnp.arange(E, dtype=jnp.int32)
+    for b in range(B):
+        nxt = jnp.minimum(pos + steps[b], E)
+        reach = jp.reachable(jnp.concatenate([nxt, jnp.full(1, E, jnp.int32)]), 0)
+        np.testing.assert_array_equal(got[b], np.asarray(reach[:E] & (pos < ns[b])))
+        truth = serial_parse(steps[b], ns[b])
+        np.testing.assert_array_equal(got[b], truth, err_msg=f"row {b}")
+        if b < 6:
+            np.testing.assert_array_equal(windowed_parse_model(steps[b], int(ns[b])), truth,
+                                          err_msg=f"row {b}")

@@ -3,9 +3,13 @@ them, each made once per test process.
 
 ``inputs(name)`` gives a seeded input: "mix" (pg11 with random bytes between,
 so several block types share a batch), "all_stored", "dense" (about 6 bits a
-byte), "mixed_tail" (stored, text and runs with an odd tail) and
-"repeated_text".  ``jax_stream`` is ``deflate_rs_tpu.parallel.corpus``'s raw
-stream of one of them.  Importing this module imports no JAX.
+byte), "mixed_tail" (stored, text and runs with an odd tail),
+"repeated_text", "wide_mix" (1.1 MB of repeated text, random bytes, runs and
+records: two chunks of 1 MiB, three of 512 KiB) and "small_mix" (64 KiB of
+text, random bytes and runs).  ``jax_stream`` is ``deflate_rs_tpu.parallel.corpus``'s raw
+stream of one of them, ``jax_preset_stream`` the same at a preset (or the
+exception it raised), and ``check_against_jax`` holds the port's corpus
+engine to it.  Importing this module imports no JAX.
 """
 
 import functools
@@ -38,6 +42,14 @@ def inputs(name: str) -> bytes:
         return rand[:65536] + pg[:100_000] + b"\x00" * 70_000 + rand[:12_345]
     if name == "repeated_text":
         return (pg * 4)[:600_000]
+    if name == "wide_mix":
+        records = b"".join(b"id=%07d;name=%s;" % (i, pg[i % 5000 : i % 5000 + 12])
+                           for i in range(4000))
+        return ((pg * 4)[:600_000] + rand[:150_000] + b"\x00" * 90_000 + records
+                + pg[:200_000])[:1_150_000]
+    if name == "small_mix":
+        return (pg[:30_000] + rand[:12_000] + b"\x00" * 6_000 + b"ab" * 2_000
+                + pg[60_000:73_536])
     raise ValueError(name)
 
 
@@ -47,3 +59,53 @@ def jax_stream(name: str, batch_size: int, chunk_size: int = 65536, packed: bool
 
     return jcorpus.compress_corpus(inputs(name), batch_size=batch_size, chunk_size=chunk_size,
                                    packed=packed).deflate
+
+
+PRESETS = ("default", "high", "fast", "rle", "huffman_only", "turbo", "ForceFixed", "ForceStored")
+
+
+def preset_options(pkg, preset: str):
+    """``pkg.CompressionOptions`` of a name of ``PRESETS`` (``pkg``: either
+    package)."""
+    if preset.startswith("Force"):
+        return pkg.CompressionOptions(special=getattr(pkg.SpecialOptions, preset))
+    return getattr(pkg.CompressionOptions, preset)()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_preset_stream(name: str, preset: str, chunk_size: int, batch_size: int):
+    """The JAX corpus engine's raw stream of ``inputs(name)`` at ``preset``,
+    or the type of the ``AssertionError`` or ``ValueError`` it raised."""
+    import deflate_rs_tpu as dj
+    from deflate_rs_tpu.parallel import corpus as jcorpus
+
+    try:
+        return jcorpus.compress_corpus(inputs(name), preset_options(dj, preset),
+                                       batch_size=batch_size, chunk_size=chunk_size).deflate
+    except (AssertionError, ValueError) as e:
+        return type(e)
+
+
+def check_against_jax(name: str, preset: str, chunk_size: int, batch_size: int) -> None:
+    """The port's corpus engine on the CPU gives the JAX stream of
+    :func:`jax_preset_stream`, or, where JAX failed, raises ``ValueError``
+    at the entry (``check_chunk_size``, before any encode)."""
+    import zlib
+
+    import pytest
+
+    import deflate_rs_tpu_torch as dt
+    from deflate_rs_tpu_torch.parallel import corpus as tcorpus
+
+    want = jax_preset_stream(name, preset, chunk_size, batch_size)
+    opts = preset_options(dt, preset)
+    if isinstance(want, bytes):
+        got = tcorpus.compress_corpus(inputs(name), opts, batch_size=batch_size,
+                                      chunk_size=chunk_size, device="cpu").deflate
+        assert got == want
+        assert zlib.decompress(got, wbits=-15) == inputs(name)
+    else:
+        with pytest.raises(ValueError, match="long-range pass"):
+            tcorpus.check_chunk_size(chunk_size, opts)
+        with pytest.raises(ValueError, match="long-range pass"):
+            tcorpus.compress_corpus(inputs(name), opts, chunk_size=chunk_size, device="cpu")

@@ -85,3 +85,11 @@ def sharded_cases(mesh) -> dict:
     out["errors"] = errors
     out["rank"], out["size"], out["distributed"] = mesh.rank, mesh.size, is_distributed()
     return out
+
+
+def emit_case(mesh, data: bytes, emit: int, preset: str) -> dict:
+    """This rank's shard of ``data`` in chunks of ``emit`` bytes at ``preset``
+    (compact mode), the batch padded to a multiple of the mesh size."""
+    (bufs, hist, ns, lasts), _ = pad_to_multiple(build_batch(data, emit), mesh.size)
+    step = make_sharded_encoder(mesh, getattr(CompressionOptions, preset)(), emit)
+    return step(bufs, hist, ns, lasts)
