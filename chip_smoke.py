@@ -144,12 +144,18 @@ Phases (each prints a line; any failure exits non-zero):
    ``max_memory_allocated`` and the batches; every kernel's launch counter
    must move, the tiled path of ``lr_measure`` (and not its block path) at
    high's 1 MiB.  fast, rle and turbo at 4,112 bytes on the first 4 MiB:
-   CUDA bytes equal the CPU port's.  Each size at which the JAX package fails
+   CUDA bytes equal the CPU port's.  huffman_only and turbo at 1 MiB on a
+   MiB of zeros and a MiB of b"a" (one litlen symbol of frequency 2**20):
+   CUDA bytes equal the CPU port's, round trips through zlib and
+   ``inflate_device`` on the card, every kernel but ``lr_measure`` launched.
+   Each size at which the JAX package fails
    (and 1 MiB + 256) raises ``ValueError`` at the entry, no kernel launched.
    The kernels at the first batch of the 1 MiB runs (all five at Default,
-   the tiled path at high) and ``parse_scan`` at fast's 4,112 bytes: exact
-   equality with the plain versions (``lr_measure``'s two rows at a time),
-   graph-replay time, bound and share.
+   with ``torch.bincount`` beside ``quarter_hist``; the tiled path at high),
+   ``parse_scan`` at fast's 4,112 bytes and the four kernels of the
+   one-byte MiBs' batch (package-merge at a leaf of 2**20, at huffman_only
+   and turbo): exact equality with the plain versions (``lr_measure``'s two
+   rows at a time), graph-replay time, bound and share.
 
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
@@ -960,6 +966,12 @@ CHUNK_RUNS = (("default", 65536), ("default", 262144), ("default", 524288),
               ("default", 1048576), ("high", 65536), ("high", 1048576))
 SMALL_CHUNK_RUNS = ("fast", "rle", "turbo")  # at 4,112 B on the mix's first 4 MiB
 SMALL_EMIT = 4112
+# A MiB of one byte value at the presets without a match search: a chunk of
+# 1 MiB whose block gives one litlen symbol the frequency 2**20, package-merge's
+# widest leaf (on symbol 0, and on 97 above unused symbols).
+MIB = 1 << 20
+ONE_BYTE_PRESETS = ("huffman_only", "turbo")
+ONE_BYTE_MIBS = (("zeros", bytes(MIB)), ("b'a'", b"a" * MIB))
 # (preset, chunk size) at which the JAX package's compress_corpus fails, and
 # the cap: each must raise ValueError at the entry.
 REFUSED = tuple((p, E) for p in ("default", "high", "ForceFixed", "ForceStored")
@@ -983,11 +995,17 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
     the stream round-trips through zlib, CUDA bytes equal the CPU port's on
     the first 2 MiB, the peak ``max_memory_allocated`` of the four runs, the
     batches and the ratio beside the 64 KiB run's.  fast, rle and turbo at
-    4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU port's.  The
+    4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU port's.
+    huffman_only and turbo at 1 MiB on a MiB of zeros and a MiB of b"a",
+    one stream each (launch counters set to 0 just before it, every kernel
+    but ``lr_measure`` must move): CUDA bytes equal the CPU port's, the
+    stream round-trips through zlib and ``inflate_device`` on the card.  The
     sizes at which the JAX package fails raise ``ValueError`` at the entry,
     with no kernel launched.  Then the kernels at the first batch of the 1
-    MiB runs (Default's, and high's for the tiled path) and of fast's at
-    4,112 bytes, against their plain versions, exact, with graph-replay time
+    MiB runs (Default's, and high's for the tiled path; ``torch.bincount``
+    timed beside ``quarter_hist``), of fast's at 4,112 bytes and of the two
+    one-byte MiBs in one batch (package-merge at a leaf of 2**20, at both
+    presets), against their plain versions, exact, with graph-replay time
     and bound.  Returns (launches by run, kernel rows by key)."""
     import dataclasses
 
@@ -996,6 +1014,7 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
     from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
                                           pm_kernel)
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+    from deflate_rs_tpu_torch.ops.inflate_device import inflate_device
     from deflate_rs_tpu_torch.parallel import corpus
     from deflate_rs_tpu_torch.utils.mix import build_mix
 
@@ -1059,6 +1078,24 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
               f"{len(got.deflate) / len(quarter):.5f}, CUDA bytes == CPU port bytes, "
               f"{len(quarter) / 1e6 / wall:.2f} MB/s (one run, cold); launches {counts}",
               flush=True)
+    for preset in ONE_BYTE_PRESETS:
+        o = _preset(dt, preset)
+        for what, data in ONE_BYTE_MIBS:
+            label = f"chunks: {preset} chunk_size={MIB} on a MiB of {what}"
+            cuda.reset_launches()
+            got = corpus.compress_corpus(data, o, chunk_size=MIB, device="cuda").deflate
+            torch.cuda.synchronize()
+            counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+            if got != corpus.compress_corpus(data, o, chunk_size=MIB, device="cpu").deflate:
+                raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's")
+            if zlib.decompress(got, -15) != data:
+                raise SystemExit(f"{label}: the stream does not round-trip through zlib")
+            if inflate_device(got, len(data), device="cuda") != data:
+                raise SystemExit(f"{label}: inflate_device does not give the input back")
+            check_launches(label, counts, off_path=("lr_measure", TILED))
+            launches[preset, MIB, what] = counts
+            print(f"{label}: {len(got)} B, CUDA bytes == CPU port bytes, round-trips through "
+                  f"zlib and inflate_device on the card; launches {counts}", flush=True)
     for preset, E in REFUSED:
         cuda.reset_launches()
         try:
@@ -1072,7 +1109,8 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
             raise SystemExit(f"chunks: {preset} chunk_size={E} was taken; the JAX package "
                              "fails there")
 
-    # Kernels at the first batch of the 1 MiB runs and of fast's 4,112 B run.
+    # Kernels at the first batch of the 1 MiB runs, of fast's 4,112 B run and
+    # of the one-byte MiBs (one batch of the two).
     kern = {"lr_measure": lambda a: lr_kernel.lr_measure(*a),
             "parse_scan": lambda a: parse_scan.parse_scan(*a),
             "token_fields": lambda a: field_kernel.token_fields(*a),
@@ -1091,19 +1129,31 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
             ("mib", "default", 1 << 20, "lengths_by_rank_7", "lengths_by_rank"),
             ("mib", "default", 1 << 20, "quarter_histograms", "quarter_hist"),
             ("high_mib", "high", 1 << 20, "lr_measure", "lr_measure"),
-            ("granule", "fast", SMALL_EMIT, "parse_scan", "parse_scan")]
+            ("granule", "fast", SMALL_EMIT, "parse_scan", "parse_scan"),
+            ("one_byte", "huffman_only", MIB, "parse_scan", "parse_scan"),
+            ("one_byte", "huffman_only", MIB, "token_fields", "token_fields"),
+            ("one_byte", "huffman_only", MIB, "lengths_by_rank_15", "lengths_by_rank"),
+            ("one_byte", "huffman_only", MIB, "lengths_by_rank_7", "lengths_by_rank"),
+            ("one_byte", "huffman_only", MIB, "quarter_histograms", "quarter_hist"),
+            ("one_byte_turbo", "turbo", MIB, "lengths_by_rank_15", "lengths_by_rank")]
+    one_byte = b"".join(data for _, data in ONE_BYTE_MIBS)
     rows, seen = {}, {}
     for row_key, preset, E, rec, name in sets:
         if (preset, E) not in seen:
             seen.clear()
             torch.cuda.empty_cache()
             o = dataclasses.replace(_preset(dt, preset), chain_scale=max(1, E // 65536))
-            bufs, hist, ns, last = (torch.from_numpy(a) for a in
-                                    emit_buffers(mix, E, corpus.BATCH_SIZE))
+            src, batch = ((one_byte, len(ONE_BYTE_MIBS)) if row_key.startswith("one_byte")
+                          else (mix, corpus.BATCH_SIZE))
+            bufs, hist, ns, last = (torch.from_numpy(a) for a in emit_buffers(src, E, batch))
             with torch.no_grad():
                 seen[preset, E] = harvest(ChunkEncoder(o, E).to(dev), bufs.to(dev), hist, ns,
                                           last)
         args = seen[preset, E][rec]
+        if rec == "lengths_by_rank_15" and row_key.startswith("one_byte") and not bool(
+                (args[0] == MIB).any()):
+            raise SystemExit(f"chunks: {preset}'s litlen rows of the one-byte MiBs hold no "
+                             "leaf of 2**20")
         got = kern[name](args)
         got = got if isinstance(got, tuple) else (got,)
         want = plain[name](args)
@@ -1121,14 +1171,21 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
         path = (" (tiled path)" if name == "lr_measure" and lr_kernel.window_words(
             args[2], args[1].shape[1]) > lr_kernel.MAX_WINDOW_WORDS else "")
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+        lib_ms = None
+        if name == "quarter_hist" and row_key == "mib":
+            lib_ms, same = bincount_yardstick(args, got)
+            if not same:
+                raise SystemExit("chunks: the bincount yardstick computes another function")
         print(f"kernel {rec}{path} ({preset}, chunks) emit={E} shapes={shapes}: max_abs_err=0 "
               f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bound:.5f} ms (bytes "
-              f"{bytes_ms:.5f}, operations {ops_ms:.5f}) share {100 * bound / k_ms:.1f} %",
-              flush=True)
+              f"{bytes_ms:.5f}, operations {ops_ms:.5f}) share {100 * bound / k_ms:.1f} %"
+              + (f" bincount {lib_ms:.4f} ms" if lib_ms is not None else ""), flush=True)
         r = rows.setdefault((row_key, name), {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0})
         r["ms"] += k_ms
         r["plain_ms"] += p_ms
         r["bound_ms"] += bound
+        if lib_ms is not None:
+            r["library_ms"] = lib_ms
     seen.clear()
     torch.cuda.empty_cache()
     print(f"chunks: phase took {time.perf_counter() - t0:.1f} s")
@@ -1763,6 +1820,12 @@ def main() -> int:
         })
         if name == "parse_scan":
             rows[-1].update({f"granule_{k}": v for k, v in chunk_rows["granule", name].items()})
+        rows[-1]["launches_chunks_one_byte"] = sum(
+            chunk_launches[p, MIB, what][name] for p in ONE_BYTE_PRESETS
+            for what, _ in ONE_BYTE_MIBS)
+        for row_key in ("one_byte", "one_byte_turbo"):
+            rows[-1].update({f"{row_key}_{k}": v for k, v in
+                             chunk_rows.get((row_key, chunk_key[name]), {}).items()})
     global_row["launches_chunks_high_mib"] = high_mib[TILED]
     global_row.update({f"high_mib_{k}": v for k, v in chunk_rows["high_mib", "lr_measure"].items()})
     rows.append(global_row)
@@ -1788,7 +1851,11 @@ def main() -> int:
           "chunks phase: launches_chunks_mib and launches_chunks_high_mib of the timed Default "
           "and high compress_corpus runs at 1 MiB chunks on the 64 MiB mix; mib_ms, "
           "mib_plain_ms, mib_bound_ms at the first batch of Default's 1 MiB run "
-          f"({corpus.BATCH_SIZE} chunks); granule_* at fast's {SMALL_EMIT} B chunks; the "
+          f"({corpus.BATCH_SIZE} chunks), quarter_hist's mib_library_ms the bincount there; "
+          f"granule_* at fast's {SMALL_EMIT} B chunks; launches_chunks_one_byte of the four "
+          "huffman_only and turbo streams of a MiB of zeros and of b'a' at 1 MiB chunks, "
+          "one_byte_* at the two MiBs in one batch at huffman_only, one_byte_turbo_* "
+          "(package_merge) at turbo: a leaf of 2**20; the "
           "lr_measure_global row's high_mib_* at high's 1 MiB chunks, its local pass on the "
           "tiled path")
     print(json.dumps({"kernels": rows}))

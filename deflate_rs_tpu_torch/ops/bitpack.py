@@ -47,3 +47,10 @@ def pack_fields(values: torch.Tensor, nbits: torch.Tensor, num_words: int):
     widx = torch.arange(num_words, device=values.device)
     words = torch.where(widx * 32 < total_bits[:, None], words, 0)
     return words, total_bits
+
+
+def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
+    """uint32 values in int[W] little-endian words -> uint8[4W] bytes, on the
+    device of ``words``."""
+    shifts = torch.arange(0, 32, 8, device=words.device)
+    return ((words.long()[:, None] >> shifts) & 0xFF).to(torch.uint8).reshape(-1)

@@ -89,7 +89,13 @@ class CorpusResult(StreamResult):
 def check_chunk_size(E: int, options: CompressionOptions) -> None:
     """Raise ``ValueError`` unless the encoder takes chunks of ``E`` bytes at
     the resolved ``options``: exactly the sizes up to ``MAX_CHUNK_SIZE`` at
-    which the JAX package's ``compress_corpus`` gives a stream."""
+    which the JAX package's ``compress_corpus`` gives a stream.
+
+    A block of a 1 MiB chunk holds at most 2**20 symbols, the widest
+    frequency package-merge is proven at (``ops/package_merge.py``); above
+    the cap one symbol's frequency could pass 2**20 in more ways than a run
+    of one byte value at huffman_only or turbo, which is part of why the cap
+    stays."""
     if E <= 0 or E % CHUNK_GRANULE:
         raise ValueError(
             f"chunk_size must be a positive multiple of {CHUNK_GRANULE}, got {E}: the "

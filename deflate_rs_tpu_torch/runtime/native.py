@@ -67,6 +67,11 @@ def _load():
         return _lib
 
 
+def available() -> bool:
+    """Whether the host runtime was built and loaded."""
+    return _load() is not None
+
+
 def assemble_chunks(words: np.ndarray, nbytes: np.ndarray) -> bytes:
     """Concatenate per-chunk payloads.  words: uint8[n_chunks, stride]."""
     lib = _load()

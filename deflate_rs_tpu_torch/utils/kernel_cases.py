@@ -186,6 +186,9 @@ MIXED_KINDS = ("zipf", "dist", "empty", "single", "fib", "near_big", "dist", "zi
 M_SWEEP = (0, 1, 2, 3, 31, 32, 33, 64, 65, 255, 256, 286)
 
 
+FREQ_2P20_CASE = "freq_2p20_286"
+
+
 def package_merge_cases() -> list:
     """``[(name, freqs int32[R, A], max_len)]``; 0 marks an unused symbol."""
     cases = []
@@ -204,6 +207,13 @@ def package_merge_cases() -> list:
             [_row(MIXED_KINDS[r % len(MIXED_KINDS)], rng, 286) for r in range(R)]), 15))
     cases.append(("mixed_512x19", np.stack(
         [_row(MIXED_KINDS[r % len(MIXED_KINDS)], rng, 19) for r in range(512)]), 7))
+    # One symbol of frequency 2**20 and EOB (256) at 1: the litlen row of a
+    # 1 MiB block of one byte value at huffman_only or turbo, a leaf of 2**20
+    # after the sort.  On symbol 0, and on 97 (b"a"), above unused symbols.
+    mib = np.zeros((2, 286), np.int32)
+    mib[0, 0] = mib[1, 97] = 1 << 20
+    mib[:, 256] = 1
+    cases.append((FREQ_2P20_CASE, mib, 15))
     cases.append(("no_rows", np.zeros((0, 286), np.int32), 15))
     return cases
 
