@@ -51,11 +51,12 @@ Phases (each prints a line; any failure exits non-zero):
 5. kernels, wide: all five kernels against their plain versions on operands
    harvested from a Default run over 8 chunks of 262,144 bytes
    (``parse_scan`` then walks four windows a chunk and ``lr_measure``
-   windows of 1,219 words; 1 MiB chunks are phase 16's), exact equality,
-   with time, bound and share; then the adversarial operands at that width
-   and at 1 MiB (``kernel_cases``' ``*_MIB`` and ``*_GRANULE`` cases: 16
-   windows and partial segments of ``parse_scan``, high's local pass on the
-   tiled path, rows of 1 MiB and of 4,112 positions).
+   windows of 1,219 words; 1 to 4 MiB chunks are phase 16's), exact
+   equality, with time, bound and share; then the adversarial operands at
+   that width and at 1 to 4 MiB (``kernel_cases``' ``*_MIB`` and
+   ``*_GRANULE`` cases: 16 to 64 windows and partial segments of
+   ``parse_scan``, high's local pass on the tiled path, rows of 1 MiB, of
+   4 MiB and of 4,112 positions).
 6. corpus: ``compress_corpus`` on the 16 MiB mix.  Its bytes must equal
    ``compress_stream(..., pipelined=False)``'s (the chunk-batch engine) on the
    card and the CPU port's on the first 1 MiB; the zlib and gzip forms and
@@ -136,26 +137,35 @@ Phases (each prints a line; any failure exits non-zero):
 15. margins: ``tools/contract_margins.py`` at 128 KiB for Default and high
    (CUDA bytes equal the CPU port's and round-trip) and at 512 and 1,024 KiB
    (round trips); every class's margin under the contract's ceiling.
-16. chunks: ``compress_corpus`` on a 64 MiB mix (a full default batch of 1
-   MiB chunks) at ``chunk_size`` 65,536, 262,144, 524,288 and 1,048,576 with
-   Default and 65,536 and 1,048,576 with high: round trip through zlib, CUDA
-   bytes equal to the CPU port's on the first 2 MiB, warm MB/s (median and
-   spread of three runs), the ratio beside the 64 KiB run's, the peak
+16. chunks: ``compress_corpus`` on a 64 MiB mix at its default batch (64
+   chunks up to 1 MiB, 64 MiB of payload above) at ``chunk_size`` 65,536,
+   262,144, 524,288, 1,048,576, 2,097,152 and 4,161,280 with Default,
+   65,536, 1,048,576 and 2,064,128 with high, and 4,194,304 with fast and
+   rle: round trip through zlib, CUDA bytes equal to the CPU port's on the
+   first 2 MiB (above 1 MiB the first chunk and an eighth of the next),
+   warm MB/s (median and spread of three
+   runs), the ratio beside the 64 KiB run's, the peak
    ``max_memory_allocated`` and the batches; every kernel's launch counter
-   must move, the tiled path of ``lr_measure`` (and not its block path) at
-   high's 1 MiB.  fast, rle and turbo at 4,112 bytes on the first 4 MiB:
-   CUDA bytes equal the CPU port's.  huffman_only and turbo at 1 MiB on a
-   MiB of zeros and a MiB of b"a" (one litlen symbol of frequency 2**20):
-   CUDA bytes equal the CPU port's, round trips through zlib and
-   ``inflate_device`` on the card, every kernel but ``lr_measure`` launched.
-   Each size at which the JAX package fails
-   (and 1 MiB + 256) raises ``ValueError`` at the entry, no kernel launched.
-   The kernels at the first batch of the 1 MiB runs (all five at Default,
-   with ``torch.bincount`` beside ``quarter_hist``; the tiled path at high),
-   ``parse_scan`` at fast's 4,112 bytes and the four kernels of the
-   one-byte MiBs' batch (package-merge at a leaf of 2**20, at huffman_only
-   and turbo): exact equality with the plain versions (``lr_measure``'s two
-   rows at a time), graph-replay time, bound and share.
+   must move, the tiled path of ``lr_measure`` (and not its block path)
+   where the local windows pass the block's (high from 1 MiB, Default from
+   2 MiB), neither at fast and rle.  Default at 2 MiB on 2 MiB and 64 KiB of random
+   bytes (stored chunks) and fast at 4 MiB with ``packed=False`` on a stored
+   chunk and text: CUDA bytes equal the CPU port's.  fast, rle and
+   turbo at 4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU
+   port's.  huffman_only and turbo at 1, 2 and 4 MiB on a chunk of zeros
+   and one of b"a" (one litlen symbol of frequency 2**20 to 2**22): CUDA
+   bytes equal the CPU port's, round trips through zlib and
+   ``inflate_device`` on the card, every kernel but ``lr_measure``
+   launched.  Each size at which the JAX package fails, and the cap (4 MiB
+   + 16), raises ``ValueError`` at the entry, no kernel launched.  The
+   kernels at the first batch of the 1 MiB runs (all five at Default; the
+   tiled path at high), of Default's 2 MiB and 4,161,280 B runs (32 and 16
+   chunks; the tiled path held to its plain version on two rows),
+   ``parse_scan`` at fast's 4,112 bytes and 4 MiB, and the four kernels of
+   the one-byte MiBs' batch (package-merge at a leaf of 2**20, at
+   huffman_only and turbo): exact equality with the plain versions
+   (``lr_measure``'s two rows at a time), graph-replay time, bound and
+   share, ``torch.bincount`` beside ``quarter_hist``.
 
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
@@ -960,22 +970,35 @@ def margins_phase() -> None:
 
 
 CHUNKS_MIX_BYTES = 64 << 20  # a full default batch of 1 MiB chunks
-# (preset, chunk size): the corpus engine on the 64 MiB mix; the 64 KiB runs
-# are the baseline of each preset's ratio and MB/s.
+MIB = 1 << 20
+# (preset, chunk size): the corpus engine on the 64 MiB mix at its default
+# batch (64 chunks up to 1 MiB, 64 MiB of payload above); the 64 KiB runs are
+# the baseline of each preset's ratio and MB/s.  Above 1 MiB: Default at
+# 2 MiB and at 4,161,280 (the widest its long-range pass takes), high at
+# 2,064,128 (its widest), fast and rle at 4 MiB (the cap).
 CHUNK_RUNS = (("default", 65536), ("default", 262144), ("default", 524288),
-              ("default", 1048576), ("high", 65536), ("high", 1048576))
+              ("default", 1048576), ("high", 65536), ("high", 1048576),
+              ("default", 2 * MIB), ("default", 4_161_280), ("high", 2_064_128),
+              ("fast", 4 * MIB), ("rle", 4 * MIB))
 SMALL_CHUNK_RUNS = ("fast", "rle", "turbo")  # at 4,112 B on the mix's first 4 MiB
 SMALL_EMIT = 4112
-# A MiB of one byte value at the presets without a match search: a chunk of
-# 1 MiB whose block gives one litlen symbol the frequency 2**20, package-merge's
-# widest leaf (on symbol 0, and on 97 above unused symbols).
-MIB = 1 << 20
+# One byte value at the presets without a match search, one chunk a stream:
+# its block gives one litlen symbol the frequency of the chunk's size,
+# package-merge's widest leaf (2**20 to 2**22; on symbol 0, and on 97 above
+# unused symbols).
 ONE_BYTE_PRESETS = ("huffman_only", "turbo")
-ONE_BYTE_MIBS = (("zeros", bytes(MIB)), ("b'a'", b"a" * MIB))
+ONE_BYTE_SIZES = (MIB, 2 * MIB, 4 * MIB)
+ONE_BYTE_VALUES = (("zeros", b"\x00"), ("b'a'", b"a"))
 # (preset, chunk size) at which the JAX package's compress_corpus fails, and
-# the cap: each must raise ValueError at the entry.
-REFUSED = tuple((p, E) for p in ("default", "high", "ForceFixed", "ForceStored")
-                for E in (4112, 8208)) + (("default", (1 << 20) + 256),)
+# the cap (4 MiB + 16 at fast, which the JAX package takes): each must raise
+# ValueError at the entry.
+REFUSED = (tuple((p, E) for p in ("default", "high", "ForceFixed", "ForceStored")
+                 for E in (4112, 8208))
+           + (("default", 4_161_280 + 256), ("default", 4 * MIB), ("high", 2 * MIB),
+              ("fast", 4 * MIB + 16), ("default", 4 * MIB + 16)))
+# Rows of a batch above 1 MiB at which lr_measure is held to its plain
+# version, which takes seconds a row there.
+LR_PLAIN_ROWS = 2
 
 
 def _preset(dt, name: str):
@@ -988,27 +1011,38 @@ def _preset(dt, name: str):
 def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
     """The corpus engine at the chunk sizes above 64 KiB and at 4,112 bytes.
 
-    On a 64 MiB mix, ``compress_corpus`` at each of ``CHUNK_RUNS``: a warm
-    run and three timed ones (MB/s median and spread, launch counters set to
-    0 just before each and read after; every kernel of the path must move,
-    the tiled path of ``lr_measure`` at high's 1 MiB and not its block path),
-    the stream round-trips through zlib, CUDA bytes equal the CPU port's on
-    the first 2 MiB, the peak ``max_memory_allocated`` of the four runs, the
-    batches and the ratio beside the 64 KiB run's.  fast, rle and turbo at
-    4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU port's.
-    huffman_only and turbo at 1 MiB on a MiB of zeros and a MiB of b"a",
-    one stream each (launch counters set to 0 just before it, every kernel
-    but ``lr_measure`` must move): CUDA bytes equal the CPU port's, the
-    stream round-trips through zlib and ``inflate_device`` on the card.  The
-    sizes at which the JAX package fails raise ``ValueError`` at the entry,
-    with no kernel launched.  Then the kernels at the first batch of the 1
-    MiB runs (Default's, and high's for the tiled path; ``torch.bincount``
-    timed beside ``quarter_hist``), of fast's at 4,112 bytes and of the two
-    one-byte MiBs in one batch (package-merge at a leaf of 2**20, at both
-    presets), against their plain versions, exact, with graph-replay time
-    and bound.  Returns (launches by run, kernel rows by key)."""
-    import dataclasses
-
+    On a 64 MiB mix, ``compress_corpus`` at each of ``CHUNK_RUNS`` at its
+    default batch: a warm run and three timed ones (MB/s median and spread,
+    launch counters set to 0 just before each and read after; every kernel
+    of the path must move: ``lr_measure``'s tiled path and not its block
+    path where the local windows pass ``MAX_WINDOW_WORDS`` (high from
+    679,680 B, Default from 1,392,640 B), neither without the long-range
+    pass), the stream round-trips through zlib, CUDA bytes equal the CPU
+    port's on the first 2 MiB (above 1 MiB its first chunk and an eighth,
+    and the whole stream equals a CUDA run at one chunk a batch, whose
+    chunks all sit in the slot the CPU port holds), the peak
+    ``max_memory_allocated`` of the four runs, the batches and the ratio
+    beside the 64 KiB run's.  Default at 2 MiB on 2 MiB and 64 KiB of random
+    bytes (stored chunks, range totals of 2**21), and fast at 4 MiB with
+    ``packed=False`` on a stored chunk of 4 MiB and text: CUDA bytes equal
+    the CPU port's.
+    fast, rle and turbo at 4,112 bytes on the first 4 MiB: CUDA bytes equal
+    the CPU port's.  huffman_only and turbo at 1, 2 and 4 MiB on a chunk of
+    zeros and one of b"a", one stream each (launch counters set to 0 just
+    before it, every kernel but ``lr_measure`` must move): CUDA bytes equal
+    the CPU port's, the stream round-trips through zlib and
+    ``inflate_device`` on the card.  The sizes at which the JAX package
+    fails, and the cap, raise ``ValueError`` at the entry, with no kernel
+    launched.  Then the kernels at the first batch of the 1 MiB runs
+    (Default's, and high's for the tiled path), of Default's 2 MiB and
+    4,161,280 B runs (32 and 16 chunks; ``lr_measure`` there is the tiled
+    path, held to its plain version on ``LR_PLAIN_ROWS`` rows), of fast's at
+    4,112 bytes and at 4 MiB (``parse_scan``: 64 full windows a chunk) and of
+    the two one-byte MiBs in one batch (package-merge at a leaf of 2**20, at
+    both presets), against their plain versions, exact, with graph-replay
+    time and bound (``torch.bincount`` timed beside ``quarter_hist``).
+    Returns (launches by run, kernel rows by key)."""
+    import numpy as np
     import torch
 
     from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
@@ -1023,7 +1057,6 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
     torch.cuda.empty_cache()
     mix = build_mix(CHUNKS_MIX_BYTES, pg11)
     mb = len(mix) / 1e6
-    head = mix[: 2 << 20]
     launches, base = {}, {}
     for preset, E in CHUNK_RUNS:
         o = _preset(dt, preset)
@@ -1044,20 +1077,66 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         if zlib.decompress(first.deflate, -15) != mix:
             raise SystemExit(f"{label}: the stream does not round-trip")
-        if E != 65536 and (corpus.compress_corpus(head, o, chunk_size=E, device="cuda").deflate
-                           != corpus.compress_corpus(head, o, chunk_size=E, device="cpu").deflate):
-            raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's on mix[:2 MiB]")
-        tiled = lr_kernel.window_words(HALO + E, o.resolved_dom_segs) > lr_kernel.MAX_WINDOW_WORDS
-        check_launches(label, counts, off_path=("lr_measure",) if tiled else (TILED,))
+        # The CPU port takes 10-25 s a chunk above 1 MiB: there, its first
+        # chunk and an eighth of the next.
+        head = mix[: E + E // 8 if E > MIB else 2 * MIB]
+        if E != 65536:
+            tc = time.perf_counter()
+            if (corpus.compress_corpus(head, o, chunk_size=E, device="cuda").deflate
+                    != corpus.compress_corpus(head, o, chunk_size=E, device="cpu").deflate):
+                raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's on "
+                                 f"mix[:{len(head)}]")
+            cpu_s = time.perf_counter() - tc
+        if E > MIB:
+            # The bytes do not depend on the batch: one chunk a batch puts
+            # every chunk of the timed batches in slot 0, which the CPU port
+            # holds above, with no CPU time.
+            tc = time.perf_counter()
+            if corpus.compress_corpus(mix, o, chunk_size=E, batch_size=1,
+                                      device="cuda").deflate != first.deflate:
+                raise SystemExit(f"{label}: the stream at batch_size=1 differs from the one at "
+                                 f"the default batch of {corpus.default_batch_size(E)}")
+            b1_s = time.perf_counter() - tc
+        if o.matcher_mode == "hash" and o.use_long_range:
+            tiled = (lr_kernel.window_words(HALO + E, o.resolved_dom_segs)
+                     > lr_kernel.MAX_WINDOW_WORDS)
+            off_path = ("lr_measure",) if tiled else (TILED,)
+        else:
+            off_path = ("lr_measure", TILED)
+        check_launches(label, counts, off_path=off_path)
         ratio = len(first.deflate) / len(mix)
-        base.setdefault(preset, ratio)
+        if E == 65536:
+            base[preset] = ratio
         launches[preset, E] = counts
-        print(f"{label}: {len(mix) >> 20} MiB mix round-trips at ratio {ratio:.5f} (64 KiB chunks: "
-              f"{base[preset]:.5f}); {first.fetched['batches']} batches of "
-              f"{corpus.BATCH_SIZE} chunks; peak max_memory_allocated {peak:.3f} GiB; warm MB/s "
-              f"{spread(rates)}"
-              + ("" if E == 65536 else "; CUDA bytes == CPU port bytes on mix[:2 MiB]")
+        base_txt = f" (64 KiB chunks: {base[preset]:.5f})" if preset in base else ""
+        print(f"{label}: {len(mix) >> 20} MiB mix round-trips at ratio {ratio:.5f}{base_txt}; "
+              f"{first.fetched['batches']} batches of {corpus.default_batch_size(E)} chunks; "
+              f"peak max_memory_allocated {peak:.3f} GiB; warm MB/s {spread(rates)}"
+              + ("" if E == 65536 else f"; CUDA bytes == CPU port bytes on mix[:{len(head)}] "
+                 f"(the CPU port took {cpu_s:.1f} s)")
+              + ("" if E <= MIB else f"; the whole stream == the one at batch_size=1 "
+                 f"({b1_s:.1f} s)")
               + f"; launches of the last timed run {counts}", flush=True)
+    rand = np.random.default_rng(12).integers(0, 256, 4 * MIB, dtype=np.uint8).tobytes()
+    data, o = rand[: 2 * MIB + 65536], _preset(dt, "default")
+    got = corpus.compress_corpus(data, o, chunk_size=2 * MIB, device="cuda").deflate
+    if got != corpus.compress_corpus(data, o, chunk_size=2 * MIB, device="cpu").deflate:
+        raise SystemExit("chunks: default chunk_size=2097152: CUDA bytes differ from the CPU "
+                         "port's on random bytes")
+    if zlib.decompress(got, -15) != data or got[0] & 0b111:
+        raise SystemExit("chunks: default chunk_size=2097152 on random bytes: not a stored "
+                         "first chunk that round-trips")
+    print(f"chunks: default chunk_size=2097152 on {len(data)} random bytes: {len(got)} B, stored "
+          "chunks, CUDA bytes == CPU port bytes", flush=True)
+    data, o = rand + mix[:100_000], _preset(dt, "fast")
+    got = corpus.compress_corpus(data, o, chunk_size=4 * MIB, packed=False, device="cuda").deflate
+    if (got != corpus.compress_corpus(data, o, chunk_size=4 * MIB, packed=False,
+                                      device="cpu").deflate
+            or zlib.decompress(got, -15) != data or got[0] & 0b111):
+        raise SystemExit("chunks: fast chunk_size=4194304 packed=False on a stored chunk and text: "
+                         "not the CPU port's bytes, or no stored first chunk that round-trips")
+    print(f"chunks: fast chunk_size=4194304 packed=False on 4 MiB of random bytes and 100,000 of "
+          f"the mix: {len(got)} B, a stored 4 MiB chunk, CUDA bytes == CPU port bytes", flush=True)
     quarter = mix[: 4 << 20]
     for preset in SMALL_CHUNK_RUNS:
         o = _preset(dt, preset)
@@ -1078,24 +1157,26 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
               f"{len(got.deflate) / len(quarter):.5f}, CUDA bytes == CPU port bytes, "
               f"{len(quarter) / 1e6 / wall:.2f} MB/s (one run, cold); launches {counts}",
               flush=True)
-    for preset in ONE_BYTE_PRESETS:
-        o = _preset(dt, preset)
-        for what, data in ONE_BYTE_MIBS:
-            label = f"chunks: {preset} chunk_size={MIB} on a MiB of {what}"
-            cuda.reset_launches()
-            got = corpus.compress_corpus(data, o, chunk_size=MIB, device="cuda").deflate
-            torch.cuda.synchronize()
-            counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
-            if got != corpus.compress_corpus(data, o, chunk_size=MIB, device="cpu").deflate:
-                raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's")
-            if zlib.decompress(got, -15) != data:
-                raise SystemExit(f"{label}: the stream does not round-trip through zlib")
-            if inflate_device(got, len(data), device="cuda") != data:
-                raise SystemExit(f"{label}: inflate_device does not give the input back")
-            check_launches(label, counts, off_path=("lr_measure", TILED))
-            launches[preset, MIB, what] = counts
-            print(f"{label}: {len(got)} B, CUDA bytes == CPU port bytes, round-trips through "
-                  f"zlib and inflate_device on the card; launches {counts}", flush=True)
+    for size in ONE_BYTE_SIZES:
+        for preset in ONE_BYTE_PRESETS:
+            o = _preset(dt, preset)
+            for what, byte in ONE_BYTE_VALUES:
+                data = byte * size
+                label = f"chunks: {preset} chunk_size={size} on {size >> 20} MiB of {what}"
+                cuda.reset_launches()
+                got = corpus.compress_corpus(data, o, chunk_size=size, device="cuda").deflate
+                torch.cuda.synchronize()
+                counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+                if got != corpus.compress_corpus(data, o, chunk_size=size, device="cpu").deflate:
+                    raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's")
+                if zlib.decompress(got, -15) != data:
+                    raise SystemExit(f"{label}: the stream does not round-trip through zlib")
+                if inflate_device(got, len(data), device="cuda") != data:
+                    raise SystemExit(f"{label}: inflate_device does not give the input back")
+                check_launches(label, counts, off_path=("lr_measure", TILED))
+                launches[preset, size, what] = counts
+                print(f"{label}: {len(got)} B, CUDA bytes == CPU port bytes, round-trips through "
+                      f"zlib and inflate_device on the card; launches {counts}", flush=True)
     for preset, E in REFUSED:
         cuda.reset_launches()
         try:
@@ -1106,11 +1187,12 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
                 raise SystemExit(f"chunks: {preset} chunk_size={E} launched before refusing")
             print(f"chunks: {preset} chunk_size={E} refused at the entry: {e}")
         else:
-            raise SystemExit(f"chunks: {preset} chunk_size={E} was taken; the JAX package "
-                             "fails there")
+            raise SystemExit(f"chunks: {preset} chunk_size={E} was taken"
+                             + ("; the JAX package fails there" if E <= corpus.MAX_CHUNK_SIZE
+                                else ", past the cap"))
 
-    # Kernels at the first batch of the 1 MiB runs, of fast's 4,112 B run and
-    # of the one-byte MiBs (one batch of the two).
+    # Kernels at the first batch of the wide runs, of fast's 4,112 B and 4 MiB
+    # runs and of the one-byte MiBs (one batch of the two).
     kern = {"lr_measure": lambda a: lr_kernel.lr_measure(*a),
             "parse_scan": lambda a: parse_scan.parse_scan(*a),
             "token_fields": lambda a: field_kernel.token_fields(*a),
@@ -1121,30 +1203,27 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
              "token_fields": lambda a: field_kernel.token_fields_plain(*a),
              "lengths_by_rank": lambda a: pm_kernel.lengths_by_rank_plain(*a),
              "quarter_hist": lambda a: hist_kernel.quarter_histograms_plain(*a)}
+    every = (("lr_measure", "lr_measure"), ("parse_scan", "parse_scan"),
+             ("token_fields", "token_fields"), ("lengths_by_rank_15", "lengths_by_rank"),
+             ("lengths_by_rank_7", "lengths_by_rank"), ("quarter_histograms", "quarter_hist"))
     # (row key, preset, chunk size, recorded wrapper, which of its calls)
-    sets = [("mib", "default", 1 << 20, "lr_measure", "lr_measure"),
-            ("mib", "default", 1 << 20, "parse_scan", "parse_scan"),
-            ("mib", "default", 1 << 20, "token_fields", "token_fields"),
-            ("mib", "default", 1 << 20, "lengths_by_rank_15", "lengths_by_rank"),
-            ("mib", "default", 1 << 20, "lengths_by_rank_7", "lengths_by_rank"),
-            ("mib", "default", 1 << 20, "quarter_histograms", "quarter_hist"),
-            ("high_mib", "high", 1 << 20, "lr_measure", "lr_measure"),
-            ("granule", "fast", SMALL_EMIT, "parse_scan", "parse_scan"),
-            ("one_byte", "huffman_only", MIB, "parse_scan", "parse_scan"),
-            ("one_byte", "huffman_only", MIB, "token_fields", "token_fields"),
-            ("one_byte", "huffman_only", MIB, "lengths_by_rank_15", "lengths_by_rank"),
-            ("one_byte", "huffman_only", MIB, "lengths_by_rank_7", "lengths_by_rank"),
-            ("one_byte", "huffman_only", MIB, "quarter_histograms", "quarter_hist"),
-            ("one_byte_turbo", "turbo", MIB, "lengths_by_rank_15", "lengths_by_rank")]
-    one_byte = b"".join(data for _, data in ONE_BYTE_MIBS)
+    sets = ([("mib", "default", MIB, rec, name) for rec, name in every]
+            + [("high_mib", "high", MIB, "lr_measure", "lr_measure")]
+            + [("mib2", "default", 2 * MIB, rec, name) for rec, name in every]
+            + [("mib4", "default", 4_161_280, rec, name) for rec, name in every]
+            + [("granule", "fast", SMALL_EMIT, "parse_scan", "parse_scan"),
+               ("fast4m", "fast", 4 * MIB, "parse_scan", "parse_scan")]
+            + [("one_byte", "huffman_only", MIB, rec, name) for rec, name in every[1:]]
+            + [("one_byte_turbo", "turbo", MIB, "lengths_by_rank_15", "lengths_by_rank")])
+    one_byte = b"".join(byte * MIB for _, byte in ONE_BYTE_VALUES)
     rows, seen = {}, {}
     for row_key, preset, E, rec, name in sets:
         if (preset, E) not in seen:
             seen.clear()
             torch.cuda.empty_cache()
-            o = dataclasses.replace(_preset(dt, preset), chain_scale=max(1, E // 65536))
-            src, batch = ((one_byte, len(ONE_BYTE_MIBS)) if row_key.startswith("one_byte")
-                          else (mix, corpus.BATCH_SIZE))
+            o = corpus.chunk_options(_preset(dt, preset), E)
+            src, batch = ((one_byte, len(ONE_BYTE_VALUES)) if row_key.startswith("one_byte")
+                          else (mix, corpus.default_batch_size(E)))
             bufs, hist, ns, last = (torch.from_numpy(a) for a in emit_buffers(src, E, batch))
             with torch.no_grad():
                 seen[preset, E] = harvest(ChunkEncoder(o, E).to(dev), bufs.to(dev), hist, ns,
@@ -1156,36 +1235,53 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
                              "leaf of 2**20")
         got = kern[name](args)
         got = got if isinstance(got, tuple) else (got,)
-        want = plain[name](args)
-        want = want if isinstance(want, tuple) else (want,)
+        held = args
+        if name == "lr_measure" and E > MIB:
+            held = (args[0][:LR_PLAIN_ROWS], args[1][:LR_PLAIN_ROWS], args[2])
+            got_held = tuple(g[:LR_PLAIN_ROWS] for g in got)
+        else:
+            got_held = got
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain[name](held)
+        end.record()
+        torch.cuda.synchronize()
+        p_ms = start.elapsed_time(end)
+        want = want if isinstance(want, tuple) else (want,)
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-                  for g, w in zip(got, want))
+                  for g, w in zip(got_held, want))
         if err != 0:
             raise SystemExit(f"chunks: kernel {name} disagrees with its plain version at "
                              f"{preset} chunk_size={E}: max_abs_err={err}")
+        del want
         k_ms = kernel_ms(lambda: kern[name](args), reps=5)
-        p_ms = cuda_ms(lambda: plain[name](args), 1)
         bytes_ms, ops_ms = bound_of(name if name != "lengths_by_rank" else rec, args, got)
         bound = max(bytes_ms, ops_ms)
         path = (" (tiled path)" if name == "lr_measure" and lr_kernel.window_words(
             args[2], args[1].shape[1]) > lr_kernel.MAX_WINDOW_WORDS else "")
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         lib_ms = None
-        if name == "quarter_hist" and row_key == "mib":
+        if name == "quarter_hist" and row_key in ("mib", "mib2", "mib4"):
             lib_ms, same = bincount_yardstick(args, got)
             if not same:
                 raise SystemExit("chunks: the bincount yardstick computes another function")
         print(f"kernel {rec}{path} ({preset}, chunks) emit={E} shapes={shapes}: max_abs_err=0 "
-              f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bound:.5f} ms (bytes "
-              f"{bytes_ms:.5f}, operations {ops_ms:.5f}) share {100 * bound / k_ms:.1f} %"
+              + (f"on its first {LR_PLAIN_ROWS} rows " if held is not args else "")
+              + f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms"
+              + (f" ({LR_PLAIN_ROWS} rows)" if held is not args else "")
+              + f" bound {bound:.5f} ms (bytes {bytes_ms:.5f}, operations {ops_ms:.5f}) share "
+              f"{100 * bound / k_ms:.1f} %"
               + (f" bincount {lib_ms:.4f} ms" if lib_ms is not None else ""), flush=True)
         r = rows.setdefault((row_key, name), {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0})
         r["ms"] += k_ms
         r["plain_ms"] += p_ms
         r["bound_ms"] += bound
+        if held is not args:
+            r["plain_rows"] = LR_PLAIN_ROWS
         if lib_ms is not None:
             r["library_ms"] = lib_ms
+        del got, got_held
     seen.clear()
     torch.cuda.empty_cache()
     print(f"chunks: phase took {time.perf_counter() - t0:.1f} s")
@@ -1509,8 +1605,9 @@ def main() -> int:
                 hist_kernel.quarter_histograms_plain(*a, nq))):
             raise SystemExit(f"quarter_hist disagrees on the wide case B={B} E={E} nq={nq}")
     # The chunk sizes above 256 KiB and the multiples of 16 that are no
-    # multiple of 64: partial segments and 16 windows of parse_scan, high's
-    # local pass on lr_measure's tiled path, rows of 1 MiB and of 4,112.
+    # multiple of 64: partial segments and 16 to 64 windows of parse_scan,
+    # high's local pass on lr_measure's tiled path, rows of 1 MiB, 4 MiB and
+    # of 4,112.
     parse_sets = ([(c, kernel_cases.parse_scan_batch(*c, kernel_cases.parse_payloads_granule))
                    for c in kernel_cases.PARSE_CASES_GRANULE]
                   + [(c, kernel_cases.parse_scan_batch_wide(*c))
@@ -1542,10 +1639,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"kernels, wide: adversarial cases equal the plain versions exactly: parse_scan "
           f"{len(kernel_cases.PARSE_CASES_WIDE)} wide, {len(parse_sets)} at partial segments "
-          f"and 1 MiB; lr_measure {len(kernel_cases.LR_CASES_WIDE)} wide, "
+          f"and 1 to 4 MiB; lr_measure {len(kernel_cases.LR_CASES_WIDE)} wide, "
           f"{len(kernel_cases.LR_CASES_MIB)} at 512 KiB and 1 MiB; quarter_hist "
           f"{len(kernel_cases.HIST_CASES_WIDE)} wide, {len(kernel_cases.HIST_CASES_GRANULE)} at "
-          f"1 MiB and 4,112 (aligned and one element in); token_fields "
+          f"1 MiB, 4 MiB and 4,112 (aligned and one element in); token_fields "
           f"{len(kernel_cases.FIELD_CASES_GRANULE)} at 1 MiB and 4,112 (both forms); phase done "
           f"at {time.perf_counter() - t_start:.1f} s")
 
@@ -1770,8 +1867,9 @@ def main() -> int:
                          ["quarter_hist_nq8", "quarter_hist_nq1", "quarter_hist_nq4"],
                          ["quarter_hist_nq8"]),
     }
-    mib = chunk_launches["default", 1 << 20]
-    high_mib = chunk_launches["high", 1 << 20]
+    mib = chunk_launches["default", MIB]
+    high_mib = chunk_launches["high", MIB]
+    mib2, mib4 = chunk_launches["default", 2 * MIB], chunk_launches["default", 4_161_280]
     chunk_key = {"lr_measure": "lr_measure", "parse_scan": "parse_scan",
                  "package_merge": "lengths_by_rank", "token_fields": "token_fields",
                  "quarter_hist": "quarter_hist"}
@@ -1815,19 +1913,35 @@ def main() -> int:
             "library_ms": None if None in lib else sum(lib),
             "launches_chunks_mib": mib[name],
             "launches_chunks_high_mib": high_mib[name],
+            "launches_chunks_mib2": mib2[name],
+            "launches_chunks_mib4": mib4[name],
             "mib_batch": corpus.BATCH_SIZE,
             **{f"mib_{k}": v for k, v in chunk_rows["mib", chunk_key[name]].items()},
         })
+        if name != "lr_measure":  # above 1 MiB Default's local pass is on the tiled path
+            for row_key, E in (("mib2", 2 * MIB), ("mib4", 4_161_280)):
+                rows[-1][f"{row_key}_batch"] = corpus.default_batch_size(E)
+                rows[-1].update({f"{row_key}_{k}": v
+                                 for k, v in chunk_rows[row_key, chunk_key[name]].items()})
         if name == "parse_scan":
             rows[-1].update({f"granule_{k}": v for k, v in chunk_rows["granule", name].items()})
+            rows[-1].update({f"fast4m_{k}": v for k, v in chunk_rows["fast4m", name].items()})
         rows[-1]["launches_chunks_one_byte"] = sum(
             chunk_launches[p, MIB, what][name] for p in ONE_BYTE_PRESETS
-            for what, _ in ONE_BYTE_MIBS)
+            for what, _ in ONE_BYTE_VALUES)
+        rows[-1]["launches_chunks_one_byte_wide"] = sum(
+            chunk_launches[p, size, what][name] for p in ONE_BYTE_PRESETS
+            for what, _ in ONE_BYTE_VALUES for size in ONE_BYTE_SIZES if size > MIB)
         for row_key in ("one_byte", "one_byte_turbo"):
             rows[-1].update({f"{row_key}_{k}": v for k, v in
                              chunk_rows.get((row_key, chunk_key[name]), {}).items()})
     global_row["launches_chunks_high_mib"] = high_mib[TILED]
     global_row.update({f"high_mib_{k}": v for k, v in chunk_rows["high_mib", "lr_measure"].items()})
+    global_row["launches_chunks_high_2m"] = chunk_launches["high", 2_064_128][TILED]
+    for row_key, launched, E in (("mib2", mib2, 2 * MIB), ("mib4", mib4, 4_161_280)):
+        global_row[f"launches_chunks_{row_key}"] = launched[TILED]
+        global_row[f"{row_key}_batch"] = corpus.default_batch_size(E)
+        global_row.update({f"{row_key}_{k}": v for k, v in chunk_rows[row_key, "lr_measure"].items()})
     rows.append(global_row)
     high_pm = results["lengths_by_rank_15_high"]
     print(f"package_merge at high's shape: kernel {high_pm['ms']:.4f} ms plain "
@@ -1855,9 +1969,14 @@ def main() -> int:
           f"granule_* at fast's {SMALL_EMIT} B chunks; launches_chunks_one_byte of the four "
           "huffman_only and turbo streams of a MiB of zeros and of b'a' at 1 MiB chunks, "
           "one_byte_* at the two MiBs in one batch at huffman_only, one_byte_turbo_* "
-          "(package_merge) at turbo: a leaf of 2**20; the "
+          "(package_merge) at turbo: a leaf of 2**20; launches_chunks_one_byte_wide the same "
+          "at 2 and 4 MiB; launches_chunks_mib2 and launches_chunks_mib4 of the timed Default "
+          "runs at 2,097,152 and 4,161,280 B chunks, mib2_* and mib4_* at their first batches "
+          "(mib2_batch, mib4_batch chunks; the lr_measure_global row holds lr_measure's there, "
+          "Default's local pass on the tiled path, its plain_ms on plain_rows rows); parse_scan's "
+          "fast4m_* at fast's first batch of 4 MiB chunks; the "
           "lr_measure_global row's high_mib_* at high's 1 MiB chunks, its local pass on the "
-          "tiled path")
+          "tiled path, and launches_chunks_high_2m of the timed high run at 2,064,128 B")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

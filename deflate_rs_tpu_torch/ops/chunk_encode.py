@@ -15,7 +15,7 @@ input tensors:
   (token_fields kernel) -> bit pack.
 
 The host-constant tables (split machinery, fixed codes, extra-bit tables,
-the proxy's rounding tables) are registered buffers, so ``.to(device)``
+the proxy's switch table) are registered buffers, so ``.to(device)``
 moves them with the module.
 """
 
@@ -39,7 +39,7 @@ from .matching import (chain_extend, find_matches, find_matches_hash, find_rle_m
 from .package_merge import package_merge_rows
 from .parse import build_jumps
 from .parse_scan import parse_scan
-from .proxy import load_tables, proxy_bits, row_offsets
+from .proxy import F32_EXACT_BITS, load_switch_table, proxy_bits, row_offsets
 from .symbolmap import dist_code, length_code
 
 HALO = C.WINDOW_SIZE  # history bytes preceding the emit region
@@ -125,11 +125,14 @@ class ChunkEncoder(nn.Module):
         if emit_size % sc.nq:
             raise ValueError(f"emit_size {emit_size} must divide by num_quarters {sc.nq}")
         self.num_words = out_words(emit_size, options.special == SpecialOptions.ForceFixed)
+        # A range of more than 1,118,480 positions may pass float32's exact
+        # integers with its proxy bits (15 a symbol, EOB included).
+        self.proxy_float32 = C.MAX_CODE_LENGTH * (emit_size + 1) >= F32_EXACT_BITS
 
         def buf(name, arr, dtype=np.int64):
             self.register_buffer(name, torch.as_tensor(np.asarray(arr, dtype)), persistent=False)
 
-        buf("proxy_tables", load_tables(), bool)
+        buf("proxy_table", load_switch_table(), np.int8)
         buf("proxy_offsets", row_offsets())
         buf("rid_t_c", sc.rid_t.T)                         # [C, t]
         buf("comp_ranges", sc.comp_ranges)                 # [C, R]
@@ -351,8 +354,10 @@ class ChunkEncoder(nn.Module):
             out = {"l_len_r": l_len_r, "d_len_r": d_len_r, "hdr_r": hdr_r,
                    "dyn_tok_bits_r": dyn_tok_bits_r}
         else:
-            lbits_p, lu, lz = proxy_bits(l_freq_r, self.proxy_tables, self.proxy_offsets)
-            dbits_p, du, dz = proxy_bits(d_freq_r, self.proxy_tables, self.proxy_offsets)
+            lbits_p, lu, lz = proxy_bits(l_freq_r, self.proxy_table, self.proxy_offsets,
+                                         float32_sums=self.proxy_float32)
+            dbits_p, du, dz = proxy_bits(d_freq_r, self.proxy_table, self.proxy_offsets,
+                                         float32_sums=self.proxy_float32)
             extra_bits_r = (l_freq_r * self.l_extra).sum(-1) + (d_freq_r * self.d_extra).sum(-1)
             proxy_hdr_r = 14 + 57 + 4 * (lu + du) + 8 * (lz + dz)
             dyn_score_r = 3 + proxy_hdr_r + lbits_p + dbits_p + extra_bits_r

@@ -16,20 +16,29 @@ from .pm_kernel import BIG, lengths_by_rank
 
 # Sort key of an unused leaf, past the key ``f * 512 + sym`` of every used one.
 _UNUSED = 1 << 40
+# Largest sum of a row's frequencies that the lengths are proven at.
+MAX_ROW_SUM = (1 << 22) + 1
 
 
 def package_merge_rows(freqs: torch.Tensor, max_len: int) -> torch.Tensor:
     """Code lengths int32[R, A] for ``freqs`` int[R, A] (0 = unused).
 
     All-zero if a row uses no symbol; a single used symbol gets length 1.
-    Frequencies must be at most 2**20 (one 1 MiB block).  Above that the
-    int64 sort keys still order the leaves, but that the package sums stay
-    below the ``BIG`` clamp is not proven there.
+    A row's frequencies must sum to at most ``MAX_ROW_SUM`` (a block of a
+    4 MiB chunk: 2**22 symbols and EOB).  The int64 sort keys order any
+    frequencies, and the package sums stay below the ``BIG`` clamp: the list
+    of a level holds the leaves (their sum W) and packages made of disjoint
+    pairs of the level below, so its values sum to at most W plus that
+    level's sum, and a list ``max_len - 1`` levels up from the leaves sums
+    to at most ``max_len * W``.  A package is part of the level above's list,
+    so every package is at most ``15 * (2**22 + 1)``, under 2**26 < ``BIG``.
 
     Unused leaves sort past every used one whatever its frequency, so a
-    symbol of frequency 2**20 (key 2**29 + sym) keeps its code.  The JAX
-    package's XLA form sorts the unused symbols below such a symbol ahead
-    of it and gives it length 0.
+    symbol of frequency 2**20 or more (key 2**29 + sym and up) keeps its
+    code.  The JAX package's XLA form sorts the unused symbols ahead of such
+    a symbol (its int32 key passes their ``2**29 + s``, and wraps below 0
+    at 2**22) and gives it length 0, but at 2**22 the wrap puts it first,
+    where a block of one symbol and EOB gets both lengths right.
     """
     R, A = freqs.shape
     f = freqs.long()

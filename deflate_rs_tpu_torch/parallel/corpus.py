@@ -55,20 +55,23 @@ from ..runtime import native
 # 64 chunks a batch ran at 50-61 MB/s against 33-52 at 32 and 15-26 at 16.
 # Queue depths 1 and 3 read alike at every batch size (a deeper queue is
 # unproven there), so the depth is the one that pins the least staging memory.
-# The batch holds at every chunk size: 64 chunks of 1 MiB peak at about 18 GiB
-# of device memory at Default and at high (``tools/corpus_memory.py`` and
-# ``chip_smoke.py``, PERF.md section 6), the memory growing with the bytes of
-# a batch.
+# Device memory grows with the payload bytes of a batch, about 0.28 GiB a MiB
+# (64 chunks of 1 MiB peak at about 18 GiB at Default and at high:
+# ``tools/corpus_memory.py`` and ``chip_smoke.py``, PERF.md section 6), so
+# without a ``batch_size`` from the caller a batch holds at most
+# ``BATCH_PAYLOAD_BYTES`` of payload: 64 chunks up to 1 MiB, 32 of 2 MiB, 16
+# of 4 MiB (``default_batch_size``).
 BATCH_SIZE = 64
+BATCH_PAYLOAD_BYTES = 64 << 20
 QUEUE_DEPTH = 1
 
 # Chunk sizes: multiples of 16 (the JAX package's rule, from the row count
-# its parse kernel reshapes the emit region to) up to 1 MiB, the widest chunk
-# whose range totals the block-split proxy's rounding tables cover
+# its parse kernel reshapes the emit region to) up to 4 MiB, the widest chunk
+# whose range totals the block-split proxy's switch table covers
 # (``ops/proxy.py``: ``TOT_MAX``).  The presets add rules of their own; see
 # ``check_chunk_size``.
 CHUNK_GRANULE = 16
-MAX_CHUNK_SIZE = 1 << 20
+MAX_CHUNK_SIZE = 1 << 22
 
 # Pipelines kept between calls, over all configurations together: each pins
 # ``queue_depth + 1`` staging and result buffers of a whole batch.
@@ -91,11 +94,13 @@ def check_chunk_size(E: int, options: CompressionOptions) -> None:
     the resolved ``options``: exactly the sizes up to ``MAX_CHUNK_SIZE`` at
     which the JAX package's ``compress_corpus`` gives a stream.
 
-    A block of a 1 MiB chunk holds at most 2**20 symbols, the widest
-    frequency package-merge is proven at (``ops/package_merge.py``); above
-    the cap one symbol's frequency could pass 2**20 in more ways than a run
-    of one byte value at huffman_only or turbo, which is part of why the cap
-    stays."""
+    Default and high reach their own end below the cap: the long-range
+    pass's harvest row, ``(32,768 + E) / segments / 2`` positions, must stay
+    below 2**15, so Default (64 segments) takes chunks up to 4,161,280 bytes
+    and high (32) up to 2,064,128; the presets without that pass take any
+    size up to the cap.  A block of a 4 MiB chunk holds at most 2**22
+    symbols, a frequency package-merge is proven at
+    (``ops/package_merge.py``)."""
     if E <= 0 or E % CHUNK_GRANULE:
         raise ValueError(
             f"chunk_size must be a positive multiple of {CHUNK_GRANULE}, got {E}: the "
@@ -103,7 +108,7 @@ def check_chunk_size(E: int, options: CompressionOptions) -> None:
     if E > MAX_CHUNK_SIZE:
         raise ValueError(
             f"chunk_size must be at most {MAX_CHUNK_SIZE}, got {E}: the block-split "
-            "proxy's rounding tables cover the symbol totals of chunks up to that size")
+            "proxy's switch table covers the symbol totals of chunks up to that size")
     nq = options.num_quarters
     if E % nq:
         raise ValueError(
@@ -330,11 +335,27 @@ def borrow_pipeline(*key):
         del _pipelines[:-POOL_MAX]
 
 
+def chunk_options(options: CompressionOptions, chunk_size: int) -> CompressionOptions:
+    """The resolved ``options`` the encoder runs at chunks of ``chunk_size``
+    bytes: above 64 KiB the matcher's chain budget is scaled with the chunk
+    size (``chain_scale``), as in the JAX package's ``compress_corpus``.  The
+    sharded encoder gives these bytes when it is built with them."""
+    if chunk_size > _deflate.FULL_EMIT and options.max_hash_checks:
+        return dataclasses.replace(options, chain_scale=max(1, chunk_size // _deflate.FULL_EMIT))
+    return options
+
+
+def default_batch_size(chunk_size: int) -> int:
+    """Chunks a batch when the caller names no ``batch_size``: ``BATCH_SIZE``,
+    or fewer where that many chunks would pass ``BATCH_PAYLOAD_BYTES``."""
+    return min(BATCH_SIZE, max(1, BATCH_PAYLOAD_BYTES // chunk_size))
+
+
 def compress_corpus(
     data: bytes,
     options: CompressionOptions | Compression | None = None,
     *,
-    batch_size: int = BATCH_SIZE,
+    batch_size: int | None = None,
     packed: bool = True,
     queue_depth: int = QUEUE_DEPTH,
     chunk_size: int | None = None,
@@ -348,11 +369,13 @@ def compress_corpus(
 
     Up to ``queue_depth`` batches of ``batch_size`` chunks stay in flight, so
     the host's fetch and splice of batch i overlap the device's encode of the
-    batches after it.
+    batches after it.  Without a ``batch_size`` a batch holds
+    :func:`default_batch_size` chunks (64, or 64 MiB of payload at chunks
+    above 1 MiB); the bytes do not depend on it.
 
     ``chunk_size`` is the per-chunk block granularity (the analogue of
     pigz's block size); the default is the one-shot path's 64 KiB and gives
-    its bytes exactly.  Larger chunks (up to 1 MiB) spread the fixed 32 KiB
+    its bytes exactly.  Larger chunks (up to 4 MiB) spread the fixed 32 KiB
     of history and the per-chunk tables over more payload; the sizes taken
     are those of :func:`check_chunk_size` at ``options``.  The suffix-order
     matcher's candidate neighbourhoods dilute as the chunk grows, so the
@@ -362,11 +385,12 @@ def compress_corpus(
     n = len(data)
     E = int(_deflate.FULL_EMIT if chunk_size is None else chunk_size)
     check_chunk_size(E, options)
+    if batch_size is None:
+        batch_size = default_batch_size(E)
     if batch_size < 1 or queue_depth < 1:
         raise ValueError(f"batch_size and queue_depth must be positive, got {batch_size}, "
                          f"{queue_depth}")
-    if E > _deflate.FULL_EMIT and options.max_hash_checks:
-        options = dataclasses.replace(options, chain_scale=max(1, E // _deflate.FULL_EMIT))
+    options = chunk_options(options, E)
 
     offsets = list(range(0, n, E)) if n else [0]
     arr = np.frombuffer(data, np.uint8)
@@ -420,14 +444,14 @@ def compress_corpus(
     )
 
 
-def compress_corpus_zlib(data: bytes, options=None, *, batch_size: int = BATCH_SIZE,
+def compress_corpus_zlib(data: bytes, options=None, *, batch_size: int | None = None,
                          device="cuda") -> bytes:
     res = compress_corpus(data, options, batch_size=batch_size, device=device)
     return C.zlib_header() + res.deflate + res.adler.to_bytes(4, "big")
 
 
 def compress_corpus_gzip(data: bytes, options=None, *, builder: GzBuilder | None = None,
-                         batch_size: int = BATCH_SIZE, device="cuda") -> bytes:
+                         batch_size: int | None = None, device="cuda") -> bytes:
     res = compress_corpus(data, options, batch_size=batch_size, device=device)
     return (
         (builder or GzBuilder()).header_bytes()

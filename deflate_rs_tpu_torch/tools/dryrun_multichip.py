@@ -112,12 +112,14 @@ def _dryrun_rank(mesh, emit: int, chunks_per_device: int, out_path: str) -> dict
     """One rank of the dry run: encode its rows, write its segment at its
     global offset, return its shard for the parent's packed check."""
     from ..compression_options import CompressionOptions
+    from ..parallel.corpus import chunk_options
     from ..parallel.sharded import assemble_local, make_sharded_encoder
 
     B = mesh.size * chunks_per_device
     data = dryrun_data(emit, B)
     bufs, hist, ns, lasts = build_batch(data, emit)
-    step = make_sharded_encoder(mesh, CompressionOptions.default(), emit)
+    # The corpus engine's options at this chunk size, so both give one stream.
+    step = make_sharded_encoder(mesh, chunk_options(CompressionOptions.default(), emit), emit)
     shard = step(bufs, hist, ns, lasts)
     payloads = [data[i * emit : i * emit + int(ns[i])] if i // chunks_per_device == mesh.rank
                 else None for i in range(B)]

@@ -28,6 +28,7 @@ chain on the CPU and prints only ``cpu_wall_ms``, the host's time, which is
 no device metric.
 
     python3 -m deflate_rs_tpu_torch.tools.stage_timing [--preset default] [--batch 64] [--emit 65536]
+    python3 -m deflate_rs_tpu_torch.tools.stage_timing --emit 4194304  # 16 chunks of 4 MiB
     python3 -m deflate_rs_tpu_torch.tools.stage_timing --device cpu --batch 2 --emit 4096
 """
 
@@ -35,7 +36,6 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import dataclasses
 import functools
 import json
 import statistics
@@ -157,13 +157,17 @@ def _profile(fns: list, attempts: int = 3) -> tuple:
                        f"({attempts} traces; {len(events)} device activities in the last)")
 
 
-def stage_rows(preset: str = "default", batch: int = 64, emit: int = 65536, *,
+def stage_rows(preset: str = "default", batch: int | None = None, emit: int = 65536, *,
                device="cuda", reps: int = 5, data: bytes | None = None,
                card: str | None = None) -> list:
     """One dict per stage of ``ChunkEncoder.forward``, then one for the whole
-    ``forward`` (``"stage": "forward"``), as the module docstring says."""
+    ``forward`` (``"stage": "forward"``), as the module docstring says.
+    ``emit`` is any chunk size the corpus engine takes at ``preset``
+    (``corpus.check_chunk_size``, up to 4 MiB), and ``batch`` by default its
+    batch at that size (``corpus.default_batch_size``)."""
     from ..compression_options import CompressionOptions
     from ..ops.chunk_encode import ChunkEncoder
+    from ..parallel.corpus import check_chunk_size, chunk_options, default_batch_size
     from ..utils.mix import mix
 
     dev = torch.device(device)
@@ -171,8 +175,9 @@ def stage_rows(preset: str = "default", batch: int = 64, emit: int = 65536, *,
     if on_card and not torch.cuda.is_available():
         raise RuntimeError("stage_timing: no CUDA device (pass device='cpu' for the CPU)")
     opts = getattr(CompressionOptions, preset)()
-    if emit > 65536 and opts.max_hash_checks:
-        opts = dataclasses.replace(opts, chain_scale=max(1, emit // 65536))
+    check_chunk_size(emit, opts)
+    opts = chunk_options(opts, emit)
+    batch = default_batch_size(emit) if batch is None else batch
     if data is None:
         data = mix(batch * emit)
     bufs, hist, ns, lasts = (torch.from_numpy(a) for a in batch_inputs(data, batch, emit))
@@ -211,8 +216,9 @@ def stage_rows(preset: str = "default", batch: int = 64, emit: int = 65536, *,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="default", choices=PRESETS)
-    ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--emit", type=int, default=65536)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="chunks (default: the corpus engine's batch at --emit, 64 up to 1 MiB)")
+    ap.add_argument("--emit", type=int, default=65536, help="chunk size, up to 4 MiB")
     ap.add_argument("--reps", type=int, default=5, help="timed runs per stage (median)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     a = ap.parse_args(argv)

@@ -142,7 +142,10 @@ PARSE_CASES_GRANULE = [(4112, 7, 0), (4112, 7, 3), (8208, 7, 1), (4128, 7, 2), (
 # (E, B, seed) of parse_scan_batch_wide: 65,552 (a last window of one
 # segment of 16 positions) and 1 MiB (16 windows), every pattern and payload.
 PARSE_CASES_WIDE_GRANULE = [(65552, 8, 0), (65552, 6, 5)]
-PARSE_CASES_MIB = [(1048576, 8, 0)]
+PARSE_CASES_MIB = [(1048576, 8, 0),
+                   # 32 windows, and 64 whose last ends in a partial segment
+                   # of 48 positions (4 MiB - 16: fast's and rle's widest).
+                   (2097152, 6, 1), (4194288, 6, 2)]
 
 
 def sorted_leaves(freqs: np.ndarray) -> np.ndarray:
@@ -187,6 +190,8 @@ M_SWEEP = (0, 1, 2, 3, 31, 32, 33, 64, 65, 255, 256, 286)
 
 
 FREQ_2P20_CASE = "freq_2p20_286"
+# The cases with a leaf of 2**21 or 2**22 (blocks of 2 and 4 MiB chunks).
+WIDE_LEAF_CASES = ("freq_2p21_286", "freq_2p22_286")
 
 
 def package_merge_cases() -> list:
@@ -214,6 +219,20 @@ def package_merge_cases() -> list:
     mib[0, 0] = mib[1, 97] = 1 << 20
     mib[:, 256] = 1
     cases.append((FREQ_2P20_CASE, mib, 15))
+    # A leaf of 2**21 on symbols 0 and 97, and a row whose leaves halve from
+    # 2**21 (on 97, then 32, 101, ...) down to 1, summing with EOB to 2**22:
+    # the length limit binds and the packages reach the row's whole sum.
+    two = np.zeros((3, 286), np.int32)
+    two[0, 0] = two[1, 97] = 1 << 21
+    halving = [97, 32, 101, 116, 0, 10] + list(range(200, 216))
+    two[2, halving] = [1 << (21 - i) for i in range(len(halving))]
+    two[:, 256] = 1
+    cases.append((WIDE_LEAF_CASES[0], two, 15))
+    # A leaf of 2**22 (a 4 MiB block of one byte value) on symbols 0 and 97.
+    four = np.zeros((2, 286), np.int32)
+    four[0, 0] = four[1, 97] = 1 << 22
+    four[:, 256] = 1
+    cases.append((WIDE_LEAF_CASES[1], four, 15))
     cases.append(("no_rows", np.zeros((0, 286), np.int32), 15))
     return cases
 
@@ -535,7 +554,9 @@ HIST_CASES_WIDE = [(2, 262144, nq, seed) for nq, seed in ((1, 0), (4, 1), (8, 2)
 # still read with 16-byte loads).
 HIST_CASES_GRANULE = ([(2, 1048576, nq, seed) for nq, seed in ((1, 0), (4, 1), (8, 2))]
                       + [(B, 4112, nq, seed) for B, nq, seed in ((1, 1, 0), (5, 1, 3),
-                                                                 (1, 4, 1), (5, 4, 4))])
+                                                                 (1, 4, 1), (5, 4, 4))]
+                      # rows of 4 MiB: quarters of up to 4 Mi positions
+                      + [(1, 4194304, nq, seed) for nq, seed in ((1, 5), (4, 6), (8, 7))])
 HIST_CASES = ([(1, E, nq, seed) for E in (4096, 65536) for nq in (1, 2, 4, 8)
                for seed in range(len(HIST_PATTERNS))]
               + [(33, E, nq, 0) for E in (4096, 65536) for nq in (1, 2, 4, 8)])

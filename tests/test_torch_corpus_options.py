@@ -63,7 +63,7 @@ def test_corpus_presets_equal_jax(preset):
     # segments of whole 4-byte words.
     (65536 + 16, "must divide by 256"), (4096 + 128, "must divide by 256"),
     (4112, "must divide by 256"),
-    (1_048_576 + 256, "at most 1048576")])
+    (4_194_304 + 256, "at most 4194304")])
 def test_bad_chunk_size_raises_at_the_entry(chunk_size, match):
     with pytest.raises(ValueError, match=match):
         tcorpus.compress_corpus(b"abc", chunk_size=chunk_size, **CPU)

@@ -1,19 +1,23 @@
 """The port's block-split entropy proxy against the JAX package's float32 form.
 
 The JAX encoder computes ``clip(ceil(log2(tot) - log2(f)), 1, 15)`` in
-float32 (``deflate_rs_tpu/ops/chunk_encode.py:380-393``); at some exact
-power-of-two ratios XLA's ``log2`` rounds up.  The port reproduces it with
-exact integers plus a committed round-up table
-(``deflate_rs_tpu_torch/data/proxy_roundup.npy``).  This file regenerates
-that table from the JAX expression in the encoder's ``[R, 286]`` jit form,
-in slices of ``SLICE_ROWS`` rows (the whole table as one array would take
-1.2 GB), and compares it with the committed one; the entries of the table's
+float32 (``deflate_rs_tpu/ops/chunk_encode.py:380-393``); near
+``tot == f << k`` XLA's ``log2`` steps from ``k`` to ``k + 1`` up to a few
+totals away from where the exact count does.  The port reproduces it with
+exact integers plus a committed table of each pair's switch offset
+(``deflate_rs_tpu_torch/data/proxy_switch.npy``).  This file regenerates that
+table from the JAX expression in both of the encoder's jit forms, ``[R, 286]``
+(the litlen histograms') and ``[R, 30]`` (the distance histograms'), in
+slices of ``SLICE_ROWS`` rows, at every total within 10 of each ``f << k``
+(each (delta, width) evaluated once a process, ``_delta_lengths``), and
+compares it with the committed one; the exact-ratio entries of the table's
 first form, which covered totals up to 262,209, are held to that form's
 digest.  Run it as a script to rewrite the table:
 
     JAX_PLATFORMS=cpu python tests/test_torch_proxy.py
 """
 
+import functools
 import hashlib
 import os
 import sys
@@ -35,12 +39,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from deflate_rs_tpu_torch.ops import proxy  # noqa: E402
 
 NL = 286
+ND = 30
 MAXLEN = 15
-SLICE_ROWS = 65536  # rows of one [R, 286] evaluation; the last slice is padded
+SLICE_ROWS = 65536  # rows of one [R, width] evaluation; the last slice is padded
 # The table's first form covered totals up to 262,209 (chunks up to 256 KiB):
 # the sha256 of its packed bits, generated in one [262192, 286] array.
 NARROW_TOT_MAX = 262209
 NARROW_SHA256 = "d522d233a7df52d6e854159225d2c71ad6a8e748a898b67dce43233fbb2ad087"
+# Totals from f << k at which the generator measures the JAX form: the
+# switch offsets lie in -5..8, and from 8 on either side of f << k the exact
+# count alone is right.
+DELTAS = range(-10, 11)
+# Pairs above a total of 1,048,641 whose switch offset is not 1, and those
+# of them two or more from it (the module docstring of ops/proxy.py).
+WIDE_OFF_EXACT = 2_232_341
+WIDE_OFF_BY_TWO = 927_200
 
 
 def _jax_lengths(freq_r):
@@ -75,9 +88,9 @@ def _table_pairs(tot_max: int = proxy.TOT_MAX):
     return np.concatenate(ks), np.concatenate(fs)
 
 
-def _pair_rows(f, tot):
-    """[P, 286] int32 histograms with f in column 0 and total tot."""
-    rows = np.zeros((len(f), NL), np.int32)
+def _pair_rows(f, tot, width: int = NL):
+    """[P, width] int32 histograms with f in column 0 and total tot."""
+    rows = np.zeros((len(f), width), np.int32)
     rows[:, 0] = f
     rows[:, 1] = tot - f
     return rows
@@ -86,36 +99,90 @@ def _pair_rows(f, tot):
 _jit_lengths = jax.jit(_jax_lengths)
 
 
-def _column0_lengths(f, tot) -> np.ndarray:
-    """The JAX lengths of column 0 of ``_pair_rows(f, tot)``, evaluated on
-    [SLICE_ROWS, 286] arrays (one compiled form; the last slice padded with
-    rows of f = 1 at total 2)."""
+def _column0_lengths(f, tot, width: int) -> np.ndarray:
+    """The JAX lengths of column 0 of ``_pair_rows(f, tot, width)``,
+    evaluated on [SLICE_ROWS, width] arrays (one compiled form a width; the
+    last slice padded with rows of f = 1 at total 2)."""
     out = np.empty(len(f), np.int64)
+    rows = _pair_rows(np.ones(SLICE_ROWS, np.int64), np.full(SLICE_ROWS, 2, np.int64), width)
     for lo in range(0, len(f), SLICE_ROWS):
-        hi = min(lo + SLICE_ROWS, len(f))
-        pad = SLICE_ROWS - (hi - lo)
-        rows = _pair_rows(np.concatenate([f[lo:hi], np.ones(pad, np.int64)]),
-                          np.concatenate([tot[lo:hi], np.full(pad, 2, np.int64)]))
-        out[lo:hi] = np.asarray(_jit_lengths(rows))[: hi - lo, 0]
+        n = min(SLICE_ROWS, len(f) - lo)
+        rows[:n, 0] = f[lo : lo + n]
+        rows[:n, 1] = tot[lo : lo + n] - f[lo : lo + n]
+        if n < SLICE_ROWS:
+            rows[n:, :2] = 1
+        out[lo : lo + n] = np.asarray(_jit_lengths(rows))[:n, 0]
     return out
 
 
-def generate_table() -> np.ndarray:
-    """Flat bool table: the JAX form gives k + 1 at tot == f << k."""
+@functools.lru_cache(maxsize=None)
+def _delta_lengths(delta: int, width: int) -> np.ndarray:
+    """int8[P]: the JAX lengths of column 0 at tot == (f << k) + delta for
+    every table pair (k, f) with tot >= f, in the ``[R, width]`` jit form;
+    -1 at the other pairs.  Read-only: each (delta, width) is evaluated once
+    a process and shared by the tests."""
     ks, fs = _table_pairs()
-    lens = _column0_lengths(fs, fs << ks)
+    tot = (fs << ks) + delta
+    keep = tot >= fs
+    out = np.full(len(fs), -1, np.int8)
+    out[keep] = _column0_lengths(fs[keep], tot[keep], width)
+    out.flags.writeable = False
+    return out
+
+
+def generate_table(width: int = NL) -> np.ndarray:
+    """Flat bool table: the JAX form gives k + 1 at tot == f << k."""
+    ks, _ = _table_pairs()
+    lens = _delta_lengths(0, width).astype(np.int64)
     assert set(np.unique(lens - ks)) <= {0, 1}
     return lens == ks + 1
 
 
-def generate_neighbour_tables() -> np.ndarray:
+def generate_neighbour_tables(width: int = NL) -> np.ndarray:
     """bool[2, P]: the JAX form gives k + 1 at tot == (f << k) - 1 (the exact
     count k), and k at tot == (f << k) + 1 (the exact count k + 1)."""
-    ks, fs = _table_pairs()
-    below = _column0_lengths(fs, (fs << ks) - 1)
-    above = _column0_lengths(fs, (fs << ks) + 1)
+    ks, _ = _table_pairs()
+    below = _delta_lengths(-1, width).astype(np.int64)
+    above = _delta_lengths(1, width).astype(np.int64)
     assert set(np.unique(below - ks)) <= {0, 1} and set(np.unique(above - ks)) <= {0, 1}
     return np.stack([below == ks + 1, above == ks])
+
+
+def roundup_table() -> np.ndarray:
+    """bool[P] from the committed switch offsets: the JAX form gives
+    ``k + 1`` at ``tot == f << k`` (the table's form up to 1,048,641)."""
+    return proxy.load_switch_table() <= 0
+
+
+def neighbour_tables() -> np.ndarray:
+    """bool[2, P] from the committed switch offsets: the JAX form gives
+    ``k + 1`` at ``(f << k) - 1``, and ``k`` at ``(f << k) + 1``."""
+    c = proxy.load_switch_table()
+    return np.stack([c <= -1, c >= 2])
+
+
+def generate_switch_table(width: int = ND) -> np.ndarray:
+    """int64[P]: the switch offset c of every (k, f), the least d of
+    ``DELTAS`` at which the JAX form gives k + 1 at tot == (f << k) + d.
+
+    Only totals whose exact count is k or k + 1 (``f << (k - 1) < tot <=
+    f << (k + 1)``) are measured; at every one of them the JAX form must be
+    the step ``k + (d >= c)``; in the ``[R, width]`` jit form."""
+    ks, fs = _table_pairs()
+    base = fs << ks
+    c = np.full(len(fs), DELTAS[-1] + 1, np.int64)
+    lens = {}
+    for d in DELTAS:
+        tot = base + d
+        inw = (tot > base >> 1) & (tot <= base << 1)
+        got = np.where(inw, _delta_lengths(d, width), -1).astype(np.int64)
+        lens[d] = got, inw
+        c = np.where(inw & (got == ks + 1) & (c > d), d, c)
+    for d, (got, inw) in lens.items():
+        bad = inw & (got != ks + (d >= c))
+        assert not bad.any(), (d, int(bad.sum()))
+    assert DELTAS[0] < c.min() and c.max() <= DELTAS[-1]
+    return c
 
 
 def narrow_entries(table: np.ndarray) -> np.ndarray:
@@ -126,27 +193,42 @@ def narrow_entries(table: np.ndarray) -> np.ndarray:
                            for k in range(1, proxy.K_MAX + 1)])
 
 
+def _lengths(tot, f, table) -> np.ndarray:
+    return proxy.proxy_code_lengths(torch.from_numpy(tot), torch.from_numpy(f),
+                                    torch.from_numpy(table),
+                                    torch.from_numpy(proxy.row_offsets())).numpy()
+
+
 def _exact_lengths(tot, f) -> np.ndarray:
-    """The port's lengths with every table empty: the exact integer count."""
-    return proxy.proxy_code_lengths(
-        torch.from_numpy(tot), torch.from_numpy(f), torch.zeros((3, 1), dtype=torch.bool),
-        torch.zeros(MAXLEN + 1, dtype=torch.int64)).numpy()
+    """The port's lengths with every switch offset at 1: the exact integer
+    count."""
+    return _lengths(tot, f, np.ones(proxy.table_size(), np.int8))
 
 
-def _port_bits(freq, tables=None):
+def _port_bits(freq, table=None):
+    """The port's proxy bits with float32 sums (the form of chunks above
+    1 MiB); where a row's bits stay below 2**24 the exact sums equal them."""
     t = torch.from_numpy(np.asarray(freq, np.int64))
-    tables = torch.from_numpy(proxy.load_tables() if tables is None else tables)
-    return [x.numpy() for x in proxy.proxy_bits(t, tables, torch.from_numpy(proxy.row_offsets()))]
+    table = torch.from_numpy(proxy.load_switch_table() if table is None else table)
+    offsets = torch.from_numpy(proxy.row_offsets())
+    got = [x.numpy() for x in proxy.proxy_bits(t, table, offsets, float32_sums=True)]
+    exact = [x.numpy() for x in proxy.proxy_bits(t, table, offsets)]
+    small = got[0] < proxy.F32_EXACT_BITS
+    for g, e in zip(got, exact):
+        np.testing.assert_array_equal(g[small], e[small])
+    return got
 
 
 def test_committed_table_equals_jax_generated():
-    """The whole exact-ratio table, regenerated slice by slice, equals the
+    """The whole exact-ratio table (the pairs whose switch offset is 0 or
+    less), regenerated slice by slice in both jit forms, equals the
     committed one; its 262,191 entries at totals up to 262,209 are those of
     its first form, bit for bit (the digest of that form's packed bits)."""
-    table = proxy.load_roundup_table()
-    assert proxy.TOT_MAX == (1 << 20) + 65
+    table = roundup_table()
+    assert proxy.TOT_MAX == (1 << 22) + 65
     assert table.size == proxy.table_size()
     np.testing.assert_array_equal(generate_table(), table)
+    np.testing.assert_array_equal(generate_table(ND), table)
     narrow = narrow_entries(table)
     assert narrow.size == 262_191
     assert hashlib.sha256(np.packbits(narrow).tobytes()).hexdigest() == NARROW_SHA256
@@ -155,63 +237,104 @@ def test_committed_table_equals_jax_generated():
 
 
 def test_committed_neighbour_tables_equal_jax_generated():
-    """Both neighbour tables, regenerated slice by slice, equal the committed
-    ones; none of their bits is set below a total of 647,681 (so chunks of up
-    to 256 KiB never needed them)."""
-    tables = proxy.load_neighbour_tables()
+    """Both neighbour tables (switch offsets -1 and less, 2 and more),
+    regenerated slice by slice in both jit forms, equal the committed ones;
+    none of their bits is set below a total of 647,681 (so chunks of up to
+    256 KiB never needed them)."""
+    tables = neighbour_tables()
     np.testing.assert_array_equal(generate_neighbour_tables(), tables)
+    np.testing.assert_array_equal(generate_neighbour_tables(ND), tables)
     ks, fs = _table_pairs()
     assert not tables[0][(fs << ks) - 1 < 647_681].any()
     assert not tables[1][(fs << ks) + 1 < 647_681].any()
     assert tables[0].any() and tables[1].any()
 
 
+def test_committed_switch_table_equals_jax_generated():
+    """The committed switch offsets, over the whole table, equal those
+    measured from the JAX form at every total within 10 of f << k, in the
+    ``[R, 30]`` and the ``[R, 286]`` jit forms, where it is a step at each
+    pair; the file is their packed form."""
+    c = proxy.load_switch_table()
+    assert c.dtype == np.int8 and c.size == proxy.table_size()
+    want = generate_switch_table()
+    np.testing.assert_array_equal(c, want)
+    np.testing.assert_array_equal(c, generate_switch_table(NL))
+    np.testing.assert_array_equal(np.load(proxy.TABLE_PATH), proxy.pack_switch_table(want))
+
+
+def test_switch_offsets_move_with_the_total():
+    """The offsets the module docstring states: 0..1 below a total of
+    647,681, -1..2 up to 1,048,641, -5..8 up to ``TOT_MAX``, and how many
+    pairs above 1,048,641 step off the exact count."""
+    c = proxy.load_switch_table().astype(np.int64)
+    ks, fs = _table_pairs()
+    tot = fs << ks
+    assert set(np.unique(c[tot + 1 < 647_681])) == {0, 1}
+    assert set(np.unique(c[tot <= 1_048_641])) == {-1, 0, 1, 2}
+    assert (int(c.min()), int(c.max())) == (-5, 8)
+    wide = c[tot > 1_048_641]
+    assert int((wide != 1).sum()) == WIDE_OFF_EXACT
+    assert int(((wide <= -1) | (wide >= 3)).sum()) == WIDE_OFF_BY_TWO
+
+
 def test_neighbours_of_powers_of_two_need_no_table():
     """At tot = f * 2^k +- 1 up to a total of 262,209 (chunks of up to
-    256 KiB) the JAX form equals the exact integer count."""
+    256 KiB) the JAX form equals the exact integer count, in both jit
+    forms."""
     ks, fs = _table_pairs(NARROW_TOT_MAX)
+    flat = proxy.row_offsets()[ks] + fs - 1
     for delta in (-1, 1):
         tot = (fs << ks) + delta
         keep = tot - fs >= 0
         f, tot = fs[keep], tot[keep]
-        np.testing.assert_array_equal(_exact_lengths(tot, f), _column0_lengths(f, tot))
+        exact = _exact_lengths(tot, f)
+        for width in (NL, ND):
+            np.testing.assert_array_equal(exact, _delta_lengths(delta, width)[flat[keep]])
 
 
-@pytest.mark.parametrize("delta", [-3, -2, -1, 1, 2, 3])
+@pytest.mark.parametrize("delta", [-3, -2, -1, 1, 2, 3] + [-10, -9, -8, -7, -6, -5, -4,
+                                                             4, 5, 6, 7, 8, 9, 10])
 def test_near_powers_of_two_equal_jax(delta):
     """At tot = f * 2^k + delta over the whole table the port equals the JAX
-    form; at two and three from f * 2^k the exact count alone does."""
+    form in both jit forms; at 8 and more from f * 2^k the exact count alone
+    does."""
     ks, fs = _table_pairs()
     tot = (fs << ks) + delta
     keep = tot - fs >= 0
     f, tot = fs[keep], tot[keep]
-    want = _column0_lengths(f, tot)
-    got = proxy.proxy_code_lengths(torch.from_numpy(tot), torch.from_numpy(f),
-                                   torch.from_numpy(proxy.load_tables()),
-                                   torch.from_numpy(proxy.row_offsets())).numpy()
-    np.testing.assert_array_equal(got, want)
-    if abs(delta) > 1:
-        np.testing.assert_array_equal(_exact_lengths(tot, f), want)
+    got = _lengths(tot, f, proxy.load_switch_table())
+    exact = _exact_lengths(tot, f) if abs(delta) >= 8 else None
+    for width in (NL, ND):
+        want = _delta_lengths(delta, width)[keep]
+        np.testing.assert_array_equal(got, want)
+        if exact is not None:
+            np.testing.assert_array_equal(exact, want)
 
 
 def _hitting_rows(rng, R, lo_tot=0):
-    """Histograms whose column c holds f at a total of exactly f << k, or one
-    off it, for table entries at totals above ``lo_tot``, with random mass
-    spread over other columns.  Three quarters of the rows hit set bits."""
+    """Histograms whose column c holds f at a total of f << k + d, for d from
+    -5 to 7 and table entries at totals above ``lo_tot``, with random mass
+    spread over other columns.  Three quarters of the rows sit where the JAX
+    form leaves the exact count (d at or past the switch offset below f << k,
+    short of it above), the rest where it does not."""
     ks, fs = _table_pairs()
-    planes = [(0, proxy.load_roundup_table())]
-    planes += list(zip((-1, 1), proxy.load_neighbour_tables()))
+    c = proxy.load_switch_table()
+    cands = {}
     rows = np.zeros((R, NL), np.int64)
     for r in range(R):
-        delta, table = planes[int(rng.integers(0, 3))]
-        want_set = r < R - R // 4
-        cand = np.flatnonzero((table == want_set) & ((fs << ks) + delta > lo_tot))
-        p = int(rng.choice(cand))
+        delta = int(rng.integers(-5, 8))
+        want_off = r < R - R // 4
+        if (delta, want_off) not in cands:
+            off = (c <= delta) if delta <= 0 else (c > delta)
+            cands[delta, want_off] = np.flatnonzero((off == want_off)
+                                                    & ((fs << ks) + delta > lo_tot))
+        p = int(rng.choice(cands[delta, want_off]))
         f, tot = int(fs[p]), int(fs[p] << ks[p]) + delta
-        c = int(rng.integers(0, NL))
-        rows[r, c] = f
+        col = int(rng.integers(0, NL))
+        rows[r, col] = f
         rest = tot - f
-        others = rng.choice([x for x in range(NL) if x != c], int(rng.integers(1, 40)),
+        others = rng.choice([x for x in range(NL) if x != col], int(rng.integers(1, 40)),
                             replace=False)
         cuts = np.sort(rng.integers(0, rest + 1, len(others) - 1))
         rows[r, others] = np.diff(np.concatenate([[0], cuts, [rest]]))
@@ -220,10 +343,12 @@ def _hitting_rows(rng, R, lo_tot=0):
 
 
 @pytest.mark.parametrize("R,lo_tot", [(1, 0), (10, 0), (36, 0), (400, 0),
-                                      (10, NARROW_TOT_MAX), (400, NARROW_TOT_MAX)])
+                                      (10, NARROW_TOT_MAX), (400, NARROW_TOT_MAX),
+                                      (10, 1_048_641), (400, 1_048_641)])
 def test_proxy_bits_equal_jax_on_table_hits(R, lo_tot):
-    """Totals anywhere in the table, and only above 262,209 (chunks of more
-    than 256 KiB), where JAX rounds up and where it does not."""
+    """Totals anywhere in the table, only above 262,209 (chunks of more than
+    256 KiB) and only above 1,048,641 (chunks of more than 1 MiB), where the
+    JAX form leaves the exact count and where it does not."""
     rows = _hitting_rows(np.random.default_rng(R + lo_tot), R, lo_tot)
     assert (rows.sum(axis=1) > lo_tot).all()
     want = jax.jit(_jax_proxy_bits)(jnp.asarray(rows, jnp.int32))
@@ -243,25 +368,50 @@ def test_proxy_bits_equal_jax_on_random_histograms():
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
+@pytest.mark.parametrize("width", [NL, ND])
+def test_proxy_bits_round_their_float32_sums_as_jax(width):
+    """Rows of a block of up to 4,194,305 symbols spread over every column
+    (up to 15 bits each): the JAX form's float32 products and sums of the
+    token bits lose their low bits past 2**24, in its order of addition,
+    and the port's float32 sums give its numbers; exact sums would not."""
+    rng = np.random.default_rng(width)
+    R = 256
+    weights = rng.random((R, width))
+    weights[rng.random((R, width)) < 0.2] = 0
+    weights[:, 0] += 1e-3
+    tot = rng.integers(3_500_000, (1 << 22) + 2, R)
+    rows = np.floor(weights / weights.sum(axis=1, keepdims=True) * tot[:, None]).astype(np.int64)
+    want = [np.asarray(w) for w in jax.jit(_jax_proxy_bits)(jnp.asarray(rows, jnp.int32))]
+    got = _port_bits(rows)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    exact = proxy.proxy_bits(torch.from_numpy(rows), torch.from_numpy(proxy.load_switch_table()),
+                             torch.from_numpy(proxy.row_offsets()))[0].numpy()
+    assert (want[0] >= proxy.F32_EXACT_BITS).sum() > R // 4
+    assert (exact != want[0]).sum() > R // 8
+
+
 def test_exact_count_alone_is_wrong_where_jax_rounds_up():
     """f = 3 of tot = 6: the JAX form gives 2-bit codes, the exact count
-    1, so without the round-up table the bits differ."""
+    1, so without the switch table the bits differ."""
     row = np.zeros((1, NL), np.int64)
     row[0, 0] = row[0, 1] = 3
     want = np.asarray(jax.jit(_jax_proxy_bits)(jnp.asarray(row, jnp.int32))[0])
     assert int(want[0]) == 12
-    no_table = np.zeros_like(proxy.load_tables())
-    assert int(_port_bits(row, no_table)[0][0]) == 6
+    exact = np.ones(proxy.table_size(), np.int8)
+    assert int(_port_bits(row, exact)[0][0]) == 6
     assert int(_port_bits(row)[0][0]) == 12
 
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    table = generate_table()
+    c = generate_switch_table()
+    np.testing.assert_array_equal(c, generate_switch_table(NL))
     os.makedirs(proxy.DATA_DIR, exist_ok=True)
-    np.save(proxy.TABLE_PATH, np.packbits(table))
-    print(f"wrote {proxy.TABLE_PATH}: {int(table.sum())} of {table.size} pairs round up")
-    neighbours = generate_neighbour_tables()
-    np.save(proxy.NEIGHBOURS_PATH, np.stack([np.packbits(t) for t in neighbours]))
-    print(f"wrote {proxy.NEIGHBOURS_PATH}: {int(neighbours[0].sum())} pairs round up at "
-          f"(f << k) - 1, {int(neighbours[1].sum())} round down at (f << k) + 1")
+    np.save(proxy.TABLE_PATH, proxy.pack_switch_table(c))
+    ks, fs = _table_pairs()
+    wide = c[(fs << ks) > 1_048_641]
+    print(f"wrote {proxy.TABLE_PATH}: switch offsets {int(c.min())}..{int(c.max())} over "
+          f"{c.size} pairs; {int((c <= 0).sum())} round up at f << k; above a total of "
+          f"1,048,641 {int((wide != 1).sum())} step off the exact count, "
+          f"{int(((wide <= -1) | (wide >= 3)).sum())} by two or more")

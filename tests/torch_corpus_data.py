@@ -5,8 +5,11 @@ them, each made once per test process.
 so several block types share a batch), "all_stored", "dense" (about 6 bits a
 byte), "mixed_tail" (stored, text and runs with an odd tail),
 "repeated_text", "wide_mix" (1.1 MB of repeated text, random bytes, runs and
-records: two chunks of 1 MiB, three of 512 KiB) and "small_mix" (64 KiB of
-text, random bytes and runs).  ``jax_stream`` is ``deflate_rs_tpu.parallel.corpus``'s raw
+records: two chunks of 1 MiB, three of 512 KiB), "small_mix" (64 KiB of
+text, random bytes and runs), "salad_4m" (4 MiB of pg11's words in a seeded
+Zipf order: text that repeats little at long range) and "stored_then_text"
+(2 MiB of random bytes, then 1,000,000 B of that text: a stored chunk of
+2 MiB and a text chunk behind it).  ``jax_stream`` is ``deflate_rs_tpu.parallel.corpus``'s raw
 stream of one of them, ``jax_preset_stream`` the same at a preset (or the
 exception it raised), and ``check_against_jax`` holds the port's corpus
 engine to it.  Importing this module imports no JAX.
@@ -24,6 +27,15 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 def pg11() -> bytes:
     with open(os.path.join(DATA, "pg11.txt"), "rb") as f:
         return f.read()
+
+
+def word_salad(n: int, seed: int) -> bytes:
+    """``n`` bytes of pg11's words, drawn in a Zipf order of their first
+    appearance, one space between."""
+    words = list(dict.fromkeys(pg11().split()))
+    rng = np.random.default_rng(seed)
+    pick = (rng.zipf(1.2, n // 3) - 1) % len(words)
+    return b" ".join(words[i] for i in pick)[:n]
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,6 +59,11 @@ def inputs(name: str) -> bytes:
                            for i in range(4000))
         return ((pg * 4)[:600_000] + rand[:150_000] + b"\x00" * 90_000 + records
                 + pg[:200_000])[:1_150_000]
+    if name == "salad_4m":
+        return word_salad(4 << 20, 3)
+    if name == "stored_then_text":
+        return (np.random.default_rng(4).integers(0, 256, 2 << 20, dtype=np.uint8).tobytes()
+                + word_salad(1_000_000, 4))
     if name == "small_mix":
         return (pg[:30_000] + rand[:12_000] + b"\x00" * 6_000 + b"ab" * 2_000
                 + pg[60_000:73_536])
