@@ -138,34 +138,44 @@ Phases (each prints a line; any failure exits non-zero):
    (CUDA bytes equal the CPU port's and round-trip) and at 512 and 1,024 KiB
    (round trips); every class's margin under the contract's ceiling.
 16. chunks: ``compress_corpus`` on a 64 MiB mix at its default batch (64
-   chunks up to 1 MiB, 64 MiB of payload above) at ``chunk_size`` 65,536,
-   262,144, 524,288, 1,048,576, 2,097,152 and 4,161,280 with Default,
-   65,536, 1,048,576 and 2,064,128 with high, and 4,194,304 with fast and
-   rle: round trip through zlib, CUDA bytes equal to the CPU port's on the
-   first 2 MiB (above 1 MiB the first chunk and an eighth of the next),
-   warm MB/s (median and spread of three
-   runs), the ratio beside the 64 KiB run's, the peak
-   ``max_memory_allocated`` and the batches; every kernel's launch counter
-   must move, the tiled path of ``lr_measure`` (and not its block path)
-   where the local windows pass the block's (high from 1 MiB, Default from
-   2 MiB), neither at fast and rle.  Default at 2 MiB on 2 MiB and 64 KiB of random
+   chunks up to 1 MiB, 64 MiB of payload above: 4 chunks of 16 MiB) at
+   ``chunk_size`` 65,536, 262,144, 524,288, 1,048,576, 2,097,152 and
+   4,161,280 with Default, 65,536, 1,048,576 and 2,064,128 with high,
+   4,194,304, 8,388,608 and 16,777,216 with fast and rle, 16,777,216 with
+   huffman_only, turbo and Default at 512 segments: round trip through
+   zlib, CUDA bytes equal to the CPU port's on the first 2 MiB (above 1 MiB
+   the first chunk and an eighth of the next, above 4 MiB the first chunk),
+   warm MB/s (median and spread of three runs), the ratio beside the 64 KiB
+   run's (above 4 MiB the 4 MiB run's), the peak ``max_memory_allocated``
+   and the batches; every kernel's launch counter must move, the tiled path
+   of ``lr_measure`` (and not its block path) where the local windows pass
+   the block's (high from 1 MiB, Default from 2 MiB), neither at fast, rle,
+   huffman_only and turbo.  Default at 2 MiB on 2 MiB and 64 KiB of random
    bytes (stored chunks) and fast at 4 MiB with ``packed=False`` on a stored
-   chunk and text: CUDA bytes equal the CPU port's.  fast, rle and
-   turbo at 4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU
-   port's.  huffman_only and turbo at 1, 2 and 4 MiB on a chunk of zeros
-   and one of b"a" (one litlen symbol of frequency 2**20 to 2**22): CUDA
-   bytes equal the CPU port's, round trips through zlib and
-   ``inflate_device`` on the card, every kernel but ``lr_measure``
-   launched.  Each size at which the JAX package fails, and the cap (4 MiB
-   + 16), raises ``ValueError`` at the entry, no kernel launched.  The
-   kernels at the first batch of the 1 MiB runs (all five at Default; the
-   tiled path at high), of Default's 2 MiB and 4,161,280 B runs (32 and 16
-   chunks; the tiled path held to its plain version on two rows),
-   ``parse_scan`` at fast's 4,112 bytes and 4 MiB, and the four kernels of
-   the one-byte MiBs' batch (package-merge at a leaf of 2**20, at
-   huffman_only and turbo): exact equality with the plain versions
+   chunk and text: CUDA bytes equal the CPU port's.  fast, rle and turbo at
+   4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU port's.
+   huffman_only and turbo at 1, 2 and 4 MiB on a chunk of zeros and one of
+   b"a" (one litlen symbol of frequency 2**20 to 2**22): CUDA bytes equal
+   the CPU port's, round trips through zlib and ``inflate_device`` on the
+   card, every kernel but ``lr_measure`` launched.  fast, rle and
+   huffman_only on pg11 repeated to one 16 MiB chunk (symbols of 2**20 and
+   more in a block, where the JAX package's stream is invalid): CUDA bytes
+   equal the CPU port's, round trips through zlib and ``inflate_device``.
+   The JAX package's pinned streams of one 16 MiB chunk
+   (``tests/data/torch_pins_16mib.json``, five presets): the card's whole
+   stream has the pinned length and sha256.  Each size at which the JAX
+   package fails, and the cap (16 MiB + 16), raises ``ValueError`` at the
+   entry, no kernel launched.  The kernels at the first batch of the 1 MiB
+   runs (all five at Default; the tiled path at high), of Default's 2 MiB,
+   4,161,280 B and 512-segment 16 MiB runs (32, 16 and 4 chunks; the tiled
+   path held to its plain version on two rows), of the other runs above
+   4 MiB, ``parse_scan`` at fast's 4,112 bytes and 4 MiB, and the four
+   kernels of the one-byte MiBs' batch (package-merge at a leaf of 2**20,
+   at huffman_only and turbo): exact equality with the plain versions
    (``lr_measure``'s two rows at a time), graph-replay time, bound and
-   share, ``torch.bincount`` beside ``quarter_hist``.
+   share, ``torch.bincount`` beside ``quarter_hist``.  The CPU port's bytes
+   of this phase are computed after its timed runs, in four spawned
+   processes (``Witnesses``), while the card runs the checks after them.
 
 The bound of a kernel is the larger of two times: its operands' bytes (each
 input read once, each output written once) over 3.35 TB/s, and its integer
@@ -182,7 +192,9 @@ The last two lines are a JSON object describing the kernels and the
 
 from __future__ import annotations
 
+import functools
 import gzip
+import hashlib
 import json
 import os
 import subprocess
@@ -976,10 +988,16 @@ MIB = 1 << 20
 # the baseline of each preset's ratio and MB/s.  Above 1 MiB: Default at
 # 2 MiB and at 4,161,280 (the widest its long-range pass takes), high at
 # 2,064,128 (its widest), fast and rle at 4 MiB (the cap).
+# Above 4 MiB, to the cap: fast and rle at 8 and 16 MiB, huffman_only and
+# turbo at 16 MiB, and Default at 512 segments at 16 MiB (the widest
+# long-range pass the JAX package takes at the cap, lr_measure's tiled path).
+WIDE_CHUNK_RUNS = (("fast", 8 * MIB), ("rle", 8 * MIB), ("fast", 16 * MIB), ("rle", 16 * MIB),
+                   ("huffman_only", 16 * MIB), ("turbo", 16 * MIB),
+                   ("default_segs512", 16 * MIB))
 CHUNK_RUNS = (("default", 65536), ("default", 262144), ("default", 524288),
               ("default", 1048576), ("high", 65536), ("high", 1048576),
               ("default", 2 * MIB), ("default", 4_161_280), ("high", 2_064_128),
-              ("fast", 4 * MIB), ("rle", 4 * MIB))
+              ("fast", 4 * MIB), ("rle", 4 * MIB)) + WIDE_CHUNK_RUNS
 SMALL_CHUNK_RUNS = ("fast", "rle", "turbo")  # at 4,112 B on the mix's first 4 MiB
 SMALL_EMIT = 4112
 # One byte value at the presets without a match search, one chunk a stream:
@@ -989,26 +1007,133 @@ SMALL_EMIT = 4112
 ONE_BYTE_PRESETS = ("huffman_only", "turbo")
 ONE_BYTE_SIZES = (MIB, 2 * MIB, 4 * MIB)
 ONE_BYTE_VALUES = (("zeros", b"\x00"), ("b'a'", b"a"))
+# pg11 repeated to one 16 MiB chunk, at the presets where one block gives a
+# litlen symbol 2**20 or more and the JAX package's stream is invalid.
+TEXT_16M_PRESETS = ("fast", "rle", "huffman_only")
+# The JAX package's streams of one 16 MiB chunk of ``utils.mix.spread``, by
+# length and sha256 (``tests/test_torch_pins_16mib.py`` writes them).
+PINS_PATH = os.path.join(HERE, "tests", "data", "torch_pins_16mib.json")
 # (preset, chunk size) at which the JAX package's compress_corpus fails, and
-# the cap (4 MiB + 16 at fast, which the JAX package takes): each must raise
-# ValueError at the entry.
+# the cap (16 MiB + 16 at fast, which the JAX package takes; 32 MiB at
+# huffman_only): each must raise ValueError at the entry.
 REFUSED = (tuple((p, E) for p in ("default", "high", "ForceFixed", "ForceStored")
                  for E in (4112, 8208))
            + (("default", 4_161_280 + 256), ("default", 4 * MIB), ("high", 2 * MIB),
-              ("fast", 4 * MIB + 16), ("default", 4 * MIB + 16)))
+              ("default", 4 * MIB + 16), ("default", 8 * MIB), ("default_segs256", 16 * MIB),
+              ("fast", 16 * MIB + 16), ("huffman_only", 32 * MIB)))
 # Rows of a batch above 1 MiB at which lr_measure is held to its plain
 # version, which takes seconds a row there.
 LR_PLAIN_ROWS = 2
+# The chunks phase's CPU-port witnesses run in this many spawned processes
+# of WITNESS_THREADS intra-op threads each, while the card runs the phase's
+# other checks (after its timed runs), the costliest first: CPU seconds a
+# MiB of the CPU port by preset, about (two threads on the H100 machine's
+# host: high 28, Default 6-10, fast 3-5, the others under 1).
+WITNESS_PROCS = 4
+WITNESS_THREADS = 2
+WITNESS_COST = {"high": 28.0, "default": 8.0, "default_segs512": 6.4, "fast": 4.6}
 
 
 def _preset(dt, name: str):
+    """A preset by name, a ``SpecialOptions`` member, or ``<preset>_segs<S>``:
+    the preset with ``dom_segs=S``."""
+    import dataclasses
+
     O = dt.CompressionOptions
     if name.startswith("Force"):
         return O(special=getattr(dt.SpecialOptions, name))
-    return getattr(O, name)()
+    preset, _, segs = name.partition("_segs")
+    o = getattr(O, preset)()
+    return dataclasses.replace(o, dom_segs=int(segs)) if segs else o
 
 
-def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
+@functools.lru_cache(maxsize=None)
+def chunk_source(kind: str) -> bytes:
+    """An input of the chunks phase, rebuilt from the checkout and seeds
+    (the witness processes build their own): "mix" (64 MiB), "rand" (4 MiB
+    of random bytes), "text16" (pg11 repeated to 16 MiB), "spread16" (the
+    pinned 16 MiB input)."""
+    import numpy as np
+
+    from deflate_rs_tpu_torch.utils.mix import build_mix, pg11, spread
+
+    if kind == "mix":
+        return build_mix(CHUNKS_MIX_BYTES, pg11())
+    if kind == "rand":
+        return np.random.default_rng(12).integers(0, 256, 4 * MIB, dtype=np.uint8).tobytes()
+    if kind == "text16":
+        text = pg11()
+        return (text * (16 * MIB // len(text) + 1))[: 16 * MIB]
+    if kind == "spread16":
+        return spread(16 * MIB)
+    raise ValueError(kind)
+
+
+def chunk_input(pieces) -> bytes:
+    """The bytes of ``pieces``: (kind, start, stop) slices of
+    :func:`chunk_source`, or ("fill", byte, count)."""
+    return b"".join(bytes([a]) * b if kind == "fill" else chunk_source(kind)[a:b]
+                    for kind, a, b in pieces)
+
+
+def cpu_witness(task) -> tuple:
+    """(sha256, length, seconds) of the CPU port's ``compress_corpus``
+    stream of one witness task, in a spawned process."""
+    pieces, preset, E, kw = task
+    import torch
+
+    torch.set_num_threads(WITNESS_THREADS)
+    import deflate_rs_tpu_torch as dt
+    from deflate_rs_tpu_torch.parallel import corpus
+
+    data = chunk_input(pieces)
+    t0 = time.perf_counter()
+    out = corpus.compress_corpus(data, _preset(dt, preset), chunk_size=E, device="cpu",
+                                 **kw).deflate
+    return hashlib.sha256(out).hexdigest(), len(out), time.perf_counter() - t0
+
+
+class Witnesses:
+    """The CPU port's streams of the chunks phase's inputs, computed in
+    ``WITNESS_PROCS`` spawned processes while the card runs the phase's
+    other checks.  :meth:`submit` queues one (a key names it),
+    :meth:`expect` gives the CUDA bytes it must equal, :meth:`add` does
+    both; :meth:`check` holds each and :meth:`close` ends the processes."""
+
+    def __init__(self):
+        import multiprocessing as mp
+
+        self.pool = mp.get_context("spawn").Pool(WITNESS_PROCS)
+        self.jobs, self.pending = {}, []
+
+    def submit(self, key, pieces, preset: str, E: int, **kw) -> None:
+        what = " + ".join(f"{b} x {bytes([a])!r}" if kind == "fill" else f"{kind}[{a}:{b}]"
+                          for kind, a, b in pieces)
+        self.jobs[key] = what, self.pool.apply_async(cpu_witness, ((pieces, preset, E, kw),))
+
+    def expect(self, key, label: str, cuda_bytes: bytes) -> None:
+        self.pending.append((label, key, hashlib.sha256(cuda_bytes).hexdigest(),
+                             len(cuda_bytes)))
+
+    def add(self, label: str, cuda_bytes: bytes, pieces, preset: str, E: int, **kw) -> None:
+        self.submit(label, pieces, preset, E, **kw)
+        self.expect(label, label, cuda_bytes)
+
+    def check(self) -> None:
+        for label, key, sha, n in self.pending:
+            what, res = self.jobs[key]
+            got_sha, got_n, secs = res.get(timeout=1200)
+            if (got_sha, got_n) != (sha, n):
+                raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's on {what}")
+            print(f"{label}: CUDA bytes == CPU port bytes on {what} ({n} B; the CPU port "
+                  f"took {secs:.1f} s in a witness process)", flush=True)
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
+def chunks_phase(dt, cuda, wall_of) -> tuple:
     """The corpus engine at the chunk sizes above 64 KiB and at 4,112 bytes.
 
     On a 64 MiB mix, ``compress_corpus`` at each of ``CHUNK_RUNS`` at its
@@ -1016,48 +1141,54 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
     launch counters set to 0 just before each and read after; every kernel
     of the path must move: ``lr_measure``'s tiled path and not its block
     path where the local windows pass ``MAX_WINDOW_WORDS`` (high from
-    679,680 B, Default from 1,392,640 B), neither without the long-range
-    pass), the stream round-trips through zlib, CUDA bytes equal the CPU
-    port's on the first 2 MiB (above 1 MiB its first chunk and an eighth,
-    and the whole stream equals a CUDA run at one chunk a batch, whose
-    chunks all sit in the slot the CPU port holds), the peak
-    ``max_memory_allocated`` of the four runs, the batches and the ratio
-    beside the 64 KiB run's.  Default at 2 MiB on 2 MiB and 64 KiB of random
-    bytes (stored chunks, range totals of 2**21), and fast at 4 MiB with
-    ``packed=False`` on a stored chunk of 4 MiB and text: CUDA bytes equal
-    the CPU port's.
+    679,680 B, Default from 1,392,640 B, Default at 512 segments at 16 MiB),
+    neither without the long-range pass), the stream round-trips through
+    zlib, CUDA bytes equal the CPU port's on the first 2 MiB (above 1 MiB
+    its first chunk and an eighth, above 4 MiB its first chunk; and the
+    whole stream equals a CUDA run at one chunk a batch, whose chunks all
+    sit in the slot the CPU port holds), the peak ``max_memory_allocated``
+    of the four runs, the batches and the ratio beside the 64 KiB run's (the
+    4 MiB run's above 4 MiB).  Default at 2 MiB on 2 MiB and 64 KiB of
+    random bytes (stored chunks, range totals of 2**21), and fast at 4 MiB
+    with ``packed=False`` on a stored chunk of 4 MiB and text: CUDA bytes
+    equal the CPU port's.
     fast, rle and turbo at 4,112 bytes on the first 4 MiB: CUDA bytes equal
     the CPU port's.  huffman_only and turbo at 1, 2 and 4 MiB on a chunk of
     zeros and one of b"a", one stream each (launch counters set to 0 just
     before it, every kernel but ``lr_measure`` must move): CUDA bytes equal
     the CPU port's, the stream round-trips through zlib and
-    ``inflate_device`` on the card.  The sizes at which the JAX package
+    ``inflate_device`` on the card.  fast, rle and huffman_only on pg11
+    repeated to one 16 MiB chunk (a block gives litlen symbols 2**20 and
+    more: the JAX package's stream is invalid there): CUDA bytes equal the
+    CPU port's, round trips through zlib and ``inflate_device``.  Every
+    pinned JAX stream of a 16 MiB chunk (``PINS_PATH``): the card's whole
+    stream has its length and sha256.  The sizes at which the JAX package
     fails, and the cap, raise ``ValueError`` at the entry, with no kernel
     launched.  Then the kernels at the first batch of the 1 MiB runs
-    (Default's, and high's for the tiled path), of Default's 2 MiB and
-    4,161,280 B runs (32 and 16 chunks; ``lr_measure`` there is the tiled
-    path, held to its plain version on ``LR_PLAIN_ROWS`` rows), of fast's at
-    4,112 bytes and at 4 MiB (``parse_scan``: 64 full windows a chunk) and of
-    the two one-byte MiBs in one batch (package-merge at a leaf of 2**20, at
-    both presets), against their plain versions, exact, with graph-replay
-    time and bound (``torch.bincount`` timed beside ``quarter_hist``).
-    Returns (launches by run, kernel rows by key)."""
-    import numpy as np
+    (Default's, and high's for the tiled path), of Default's 2 MiB,
+    4,161,280 B and 512-segment 16 MiB runs (32, 16 and 4 chunks;
+    ``lr_measure`` there is the tiled path, held to its plain version on
+    ``LR_PLAIN_ROWS`` rows), of fast's at 4,112 bytes and at 4 MiB
+    (``parse_scan``: 64 full windows a chunk), of the other runs above
+    4 MiB (all four kernels of their path) and of the two one-byte MiBs in
+    one batch (package-merge at a leaf of 2**20, at both presets), against
+    their plain versions, exact, with graph-replay time and bound
+    (``torch.bincount`` timed beside ``quarter_hist``).  The CPU port's
+    witnesses run in ``WITNESS_PROCS`` spawned processes from the end of the
+    timed runs on, beside the card's checks, and are held at the end.
+    Returns (launches by run, kernel rows by key, the runs above 4 MiB by
+    (preset, chunk size))."""
     import torch
 
-    from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
-                                          pm_kernel)
-    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
-    from deflate_rs_tpu_torch.ops.inflate_device import inflate_device
+    from deflate_rs_tpu_torch.ops import lr_kernel
     from deflate_rs_tpu_torch.parallel import corpus
-    from deflate_rs_tpu_torch.utils.mix import build_mix
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    mix = build_mix(CHUNKS_MIX_BYTES, pg11)
+    mix = chunk_source("mix")
     mb = len(mix) / 1e6
-    launches, base = {}, {}
+    launches, base, heads, wide_runs = {}, {}, [], {}
     for preset, E in CHUNK_RUNS:
         o = _preset(dt, preset)
         label = f"chunks: {preset} chunk_size={E}"
@@ -1077,20 +1208,17 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         if zlib.decompress(first.deflate, -15) != mix:
             raise SystemExit(f"{label}: the stream does not round-trip")
-        # The CPU port takes 10-25 s a chunk above 1 MiB: there, its first
-        # chunk and an eighth of the next.
-        head = mix[: E + E // 8 if E > MIB else 2 * MIB]
+        # The CPU port's witness (in the witness processes below): above
+        # 1 MiB its first chunk and an eighth of the next, above 4 MiB its
+        # first chunk.
         if E != 65536:
-            tc = time.perf_counter()
-            if (corpus.compress_corpus(head, o, chunk_size=E, device="cuda").deflate
-                    != corpus.compress_corpus(head, o, chunk_size=E, device="cpu").deflate):
-                raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's on "
-                                 f"mix[:{len(head)}]")
-            cpu_s = time.perf_counter() - tc
+            n_head = E if E > 4 * MIB else E + E // 8 if E > MIB else 2 * MIB
+            heads.append((label, preset, E, n_head, corpus.compress_corpus(
+                mix[:n_head], o, chunk_size=E, device="cuda").deflate))
         if E > MIB:
             # The bytes do not depend on the batch: one chunk a batch puts
             # every chunk of the timed batches in slot 0, which the CPU port
-            # holds above, with no CPU time.
+            # holds, with no CPU time.
             tc = time.perf_counter()
             if corpus.compress_corpus(mix, o, chunk_size=E, batch_size=1,
                                       device="cuda").deflate != first.deflate:
@@ -1105,78 +1233,157 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
             off_path = ("lr_measure", TILED)
         check_launches(label, counts, off_path=off_path)
         ratio = len(first.deflate) / len(mix)
-        if E == 65536:
-            base[preset] = ratio
+        if E in (65536, 4 * MIB):
+            base[preset] = (E, ratio)
         launches[preset, E] = counts
-        base_txt = f" (64 KiB chunks: {base[preset]:.5f})" if preset in base else ""
+        if (preset, E) in WIDE_CHUNK_RUNS:
+            wide_runs[preset, E] = {"mb_per_s": sorted(rates), "ratio": ratio, "peak_gib": peak,
+                                    "batches": first.fetched["batches"]}
+        base_txt = (f" ({base[preset][0]} B chunks: {base[preset][1]:.5f})"
+                    if preset in base and base[preset][0] != E else "")
         print(f"{label}: {len(mix) >> 20} MiB mix round-trips at ratio {ratio:.5f}{base_txt}; "
               f"{first.fetched['batches']} batches of {corpus.default_batch_size(E)} chunks; "
               f"peak max_memory_allocated {peak:.3f} GiB; warm MB/s {spread(rates)}"
-              + ("" if E == 65536 else f"; CUDA bytes == CPU port bytes on mix[:{len(head)}] "
-                 f"(the CPU port took {cpu_s:.1f} s)")
               + ("" if E <= MIB else f"; the whole stream == the one at batch_size=1 "
                  f"({b1_s:.1f} s)")
               + f"; launches of the last timed run {counts}", flush=True)
-    rand = np.random.default_rng(12).integers(0, 256, 4 * MIB, dtype=np.uint8).tobytes()
-    data, o = rand[: 2 * MIB + 65536], _preset(dt, "default")
+    witnesses = Witnesses()
+    try:
+        # The timed runs' heads and the text chunks of 16 MiB, the costliest
+        # first: the witness processes take them in order.
+        early = ([(label, (("mix", 0, n_head),), preset, E) for label, preset, E, n_head, _
+                  in heads]
+                 + [(("text16", p), (("text16", 0, 16 * MIB),), p, 16 * MIB)
+                    for p in TEXT_16M_PRESETS])
+        for key, pieces, preset, E in sorted(early, key=lambda w: -WITNESS_COST.get(
+                w[2], 0.8) * sum(b - a for _, a, b in w[1])):
+            witnesses.submit(key, pieces, preset, E)
+        for label, preset, E, n_head, got in heads:
+            witnesses.expect(label, label, got)
+        launches_rest, rows = _chunks_checks(dt, cuda, mix, witnesses, wall_of)
+        launches.update(launches_rest)
+        t_wait = time.perf_counter()
+        witnesses.check()
+        print(f"chunks: {len(witnesses.pending)} CPU-port witnesses held ({WITNESS_PROCS} "
+              f"processes of {WITNESS_THREADS} threads; {time.perf_counter() - t_wait:.1f} s "
+              "waited for them after the card's checks)", flush=True)
+    finally:
+        witnesses.close()
+    torch.cuda.empty_cache()
+    print(f"chunks: phase took {time.perf_counter() - t0:.1f} s")
+    return launches, rows, wide_runs
+
+
+def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
+    """The chunks phase after its timed runs (see :func:`chunks_phase`); the
+    CPU port's bytes go to ``witnesses``.  Returns (launches by run, kernel
+    rows by key)."""
+    import torch
+
+    from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
+                                          pm_kernel)
+    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+    from deflate_rs_tpu_torch.ops.inflate_device import inflate_device
+    from deflate_rs_tpu_torch.parallel import corpus
+
+    dev = torch.device("cuda", 0)
+    launches = {}
+    pieces = (("text16", 0, 16 * MIB),)
+    text16 = chunk_input(pieces)
+    for preset in TEXT_16M_PRESETS:
+        o = _preset(dt, preset)
+        label = f"chunks: {preset} chunk_size={16 * MIB} on pg11 repeated to 16 MiB"
+        cuda.reset_launches()
+        got = corpus.compress_corpus(text16, o, chunk_size=16 * MIB, device="cuda").deflate
+        torch.cuda.synchronize()
+        counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+        witnesses.expect(("text16", preset), label, got)
+        if zlib.decompress(got, -15) != text16:
+            raise SystemExit(f"{label}: the stream does not round-trip through zlib")
+        ti = time.perf_counter()
+        if inflate_device(got, len(text16), device="cuda") != text16:
+            raise SystemExit(f"{label}: inflate_device does not give the input back")
+        ti = time.perf_counter() - ti
+        check_launches(label, counts, off_path=("lr_measure", TILED))
+        launches[preset, 16 * MIB, "text"] = counts
+        print(f"{label} (a block of litlen symbols of 2**20 and more, where the JAX package's "
+              f"stream is invalid): {len(got)} B, round-trips through zlib and inflate_device on "
+              f"the card ({ti:.1f} s); launches {counts}", flush=True)
+    rand = chunk_source("rand")
+    pieces = (("rand", 0, 2 * MIB + 65536),)
+    data, o = chunk_input(pieces), _preset(dt, "default")
     got = corpus.compress_corpus(data, o, chunk_size=2 * MIB, device="cuda").deflate
-    if got != corpus.compress_corpus(data, o, chunk_size=2 * MIB, device="cpu").deflate:
-        raise SystemExit("chunks: default chunk_size=2097152: CUDA bytes differ from the CPU "
-                         "port's on random bytes")
+    witnesses.add("chunks: default chunk_size=2097152 on random bytes", got, pieces, "default",
+                  2 * MIB)
     if zlib.decompress(got, -15) != data or got[0] & 0b111:
         raise SystemExit("chunks: default chunk_size=2097152 on random bytes: not a stored "
                          "first chunk that round-trips")
     print(f"chunks: default chunk_size=2097152 on {len(data)} random bytes: {len(got)} B, stored "
-          "chunks, CUDA bytes == CPU port bytes", flush=True)
-    data, o = rand + mix[:100_000], _preset(dt, "fast")
+          "chunks", flush=True)
+    pieces = (("rand", 0, len(rand)), ("mix", 0, 100_000))
+    data, o = chunk_input(pieces), _preset(dt, "fast")
     got = corpus.compress_corpus(data, o, chunk_size=4 * MIB, packed=False, device="cuda").deflate
-    if (got != corpus.compress_corpus(data, o, chunk_size=4 * MIB, packed=False,
-                                      device="cpu").deflate
-            or zlib.decompress(got, -15) != data or got[0] & 0b111):
+    witnesses.add("chunks: fast chunk_size=4194304 packed=False", got, pieces, "fast", 4 * MIB,
+                  packed=False)
+    if zlib.decompress(got, -15) != data or got[0] & 0b111:
         raise SystemExit("chunks: fast chunk_size=4194304 packed=False on a stored chunk and text: "
-                         "not the CPU port's bytes, or no stored first chunk that round-trips")
+                         "no stored first chunk that round-trips")
     print(f"chunks: fast chunk_size=4194304 packed=False on 4 MiB of random bytes and 100,000 of "
-          f"the mix: {len(got)} B, a stored 4 MiB chunk, CUDA bytes == CPU port bytes", flush=True)
-    quarter = mix[: 4 << 20]
+          f"the mix: {len(got)} B, a stored 4 MiB chunk", flush=True)
+    pieces = (("mix", 0, 4 << 20),)
+    quarter = chunk_input(pieces)
     for preset in SMALL_CHUNK_RUNS:
         o = _preset(dt, preset)
+        label = f"chunks: {preset} chunk_size={SMALL_EMIT}"
         cuda.reset_launches()
         got, wall = wall_of(lambda: corpus.compress_corpus(quarter, o, chunk_size=SMALL_EMIT,
                                                            device="cuda"))
         counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
-        if got.deflate != corpus.compress_corpus(quarter, o, chunk_size=SMALL_EMIT,
-                                                 device="cpu").deflate:
-            raise SystemExit(f"chunks: {preset} chunk_size={SMALL_EMIT}: CUDA bytes differ from "
-                             "the CPU port's on mix[:4 MiB]")
+        witnesses.add(label, got.deflate, pieces, preset, SMALL_EMIT)
         if zlib.decompress(got.deflate, -15) != quarter:
-            raise SystemExit(f"chunks: {preset} chunk_size={SMALL_EMIT}: does not round-trip")
-        check_launches(f"chunks: {preset} chunk_size={SMALL_EMIT}", counts,
-                       off_path=("lr_measure", TILED))
+            raise SystemExit(f"{label}: does not round-trip")
+        check_launches(label, counts, off_path=("lr_measure", TILED))
         launches[preset, SMALL_EMIT] = counts
-        print(f"chunks: {preset} chunk_size={SMALL_EMIT}: mix[:4 MiB] ratio "
-              f"{len(got.deflate) / len(quarter):.5f}, CUDA bytes == CPU port bytes, "
+        print(f"{label}: mix[:4 MiB] ratio {len(got.deflate) / len(quarter):.5f}, "
               f"{len(quarter) / 1e6 / wall:.2f} MB/s (one run, cold); launches {counts}",
               flush=True)
     for size in ONE_BYTE_SIZES:
         for preset in ONE_BYTE_PRESETS:
             o = _preset(dt, preset)
             for what, byte in ONE_BYTE_VALUES:
-                data = byte * size
+                pieces = (("fill", byte[0], size),)
+                data = chunk_input(pieces)
                 label = f"chunks: {preset} chunk_size={size} on {size >> 20} MiB of {what}"
                 cuda.reset_launches()
                 got = corpus.compress_corpus(data, o, chunk_size=size, device="cuda").deflate
                 torch.cuda.synchronize()
                 counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
-                if got != corpus.compress_corpus(data, o, chunk_size=size, device="cpu").deflate:
-                    raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's")
+                witnesses.add(label, got, pieces, preset, size)
                 if zlib.decompress(got, -15) != data:
                     raise SystemExit(f"{label}: the stream does not round-trip through zlib")
                 if inflate_device(got, len(data), device="cuda") != data:
                     raise SystemExit(f"{label}: inflate_device does not give the input back")
                 check_launches(label, counts, off_path=("lr_measure", TILED))
                 launches[preset, size, what] = counts
-                print(f"{label}: {len(got)} B, CUDA bytes == CPU port bytes, round-trips through "
-                      f"zlib and inflate_device on the card; launches {counts}", flush=True)
+                print(f"{label}: {len(got)} B, round-trips through zlib and inflate_device on "
+                      f"the card; launches {counts}", flush=True)
+    with open(PINS_PATH) as f:
+        pins = json.load(f)
+    spread16 = chunk_source("spread16")
+    if hashlib.sha256(spread16).hexdigest() != pins["input_sha256"]:
+        raise SystemExit("chunks: the pinned 16 MiB input is not the one the pins were made of")
+    for preset, pin in sorted(pins["streams"].items()):
+        o = _preset(dt, preset)
+        label = f"chunks: {preset} chunk_size={pins['chunk_size']} on the pinned 16 MiB input"
+        got = corpus.compress_corpus(spread16, o, chunk_size=pins["chunk_size"],
+                                     device="cuda").deflate
+        if (len(got), hashlib.sha256(got).hexdigest()) != (pin["bytes"], pin["sha256"]):
+            raise SystemExit(f"{label}: {len(got)} B, not the JAX package's pinned stream of "
+                             f"{pin['bytes']} B")
+        if zlib.decompress(got, -15) != spread16:
+            raise SystemExit(f"{label}: the stream does not round-trip through zlib")
+        print(f"{label}: {len(got)} B, length and sha256 == the JAX package's pin, round-trips",
+              flush=True)
     for preset, E in REFUSED:
         cuda.reset_launches()
         try:
@@ -1192,7 +1399,8 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
                                 else ", past the cap"))
 
     # Kernels at the first batch of the wide runs, of fast's 4,112 B and 4 MiB
-    # runs and of the one-byte MiBs (one batch of the two).
+    # runs, of the runs above 4 MiB and of the one-byte MiBs (one batch of
+    # the two).
     kern = {"lr_measure": lambda a: lr_kernel.lr_measure(*a),
             "parse_scan": lambda a: parse_scan.parse_scan(*a),
             "token_fields": lambda a: field_kernel.token_fields(*a),
@@ -1211,6 +1419,9 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
             + [("high_mib", "high", MIB, "lr_measure", "lr_measure")]
             + [("mib2", "default", 2 * MIB, rec, name) for rec, name in every]
             + [("mib4", "default", 4_161_280, rec, name) for rec, name in every]
+            + [("mib16", "default_segs512", 16 * MIB, rec, name) for rec, name in every]
+            + [(f"{p}_{E >> 20}m", p, E, rec, name) for p, E in WIDE_CHUNK_RUNS
+               if p != "default_segs512" for rec, name in every[1:]]
             + [("granule", "fast", SMALL_EMIT, "parse_scan", "parse_scan"),
                ("fast4m", "fast", 4 * MIB, "parse_scan", "parse_scan")]
             + [("one_byte", "huffman_only", MIB, rec, name) for rec, name in every[1:]]
@@ -1228,6 +1439,7 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
             with torch.no_grad():
                 seen[preset, E] = harvest(ChunkEncoder(o, E).to(dev), bufs.to(dev), hist, ns,
                                           last)
+            del bufs
         args = seen[preset, E][rec]
         if rec == "lengths_by_rank_15" and row_key.startswith("one_byte") and not bool(
                 (args[0] == MIB).any()):
@@ -1262,7 +1474,7 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
             args[2], args[1].shape[1]) > lr_kernel.MAX_WINDOW_WORDS else "")
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         lib_ms = None
-        if name == "quarter_hist" and row_key in ("mib", "mib2", "mib4"):
+        if name == "quarter_hist" and row_key in ("mib", "mib2", "mib4", "mib16"):
             lib_ms, same = bincount_yardstick(args, got)
             if not same:
                 raise SystemExit("chunks: the bincount yardstick computes another function")
@@ -1283,8 +1495,6 @@ def chunks_phase(dt, cuda, pg11: bytes, wall_of) -> tuple:
             r["library_ms"] = lib_ms
         del got, got_held
     seen.clear()
-    torch.cuda.empty_cache()
-    print(f"chunks: phase took {time.perf_counter() - t0:.1f} s")
     return launches, rows
 
 
@@ -1605,18 +1815,20 @@ def main() -> int:
                 hist_kernel.quarter_histograms_plain(*a, nq))):
             raise SystemExit(f"quarter_hist disagrees on the wide case B={B} E={E} nq={nq}")
     # The chunk sizes above 256 KiB and the multiples of 16 that are no
-    # multiple of 64: partial segments and 16 to 64 windows of parse_scan,
-    # high's local pass on lr_measure's tiled path, rows of 1 MiB, 4 MiB and
-    # of 4,112.
+    # multiple of 64: partial segments and 16 to 256 windows of parse_scan,
+    # high's local pass and Default's at 512 segments on lr_measure's tiled
+    # path, Default's at 1,024 segments of 16 MiB chunks on its block path,
+    # rows of 1 MiB, 4 MiB and of 4,112.
     parse_sets = ([(c, kernel_cases.parse_scan_batch(*c, kernel_cases.parse_payloads_granule))
                    for c in kernel_cases.PARSE_CASES_GRANULE]
                   + [(c, kernel_cases.parse_scan_batch_wide(*c))
-                     for c in kernel_cases.PARSE_CASES_WIDE_GRANULE + kernel_cases.PARSE_CASES_MIB])
+                     for c in kernel_cases.PARSE_CASES_WIDE_GRANULE + kernel_cases.PARSE_CASES_MIB
+                     + kernel_cases.PARSE_CASES_16MIB])
     for case, (steps, n) in parse_sets:
         st, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
         if not torch.equal(parse_scan.parse_scan(st, nn), parse_scan.parse_scan_plain(st, nn)):
             raise SystemExit(f"parse_scan disagrees on the case (E, B, seed) = {case}")
-    for B, S, N, seed in kernel_cases.LR_CASES_MIB:
+    for B, S, N, seed in kernel_cases.LR_CASES_MIB + kernel_cases.LR_CASES_16MIB:
         a = tuple(torch.from_numpy(x).to(dev) for x in kernel_cases.lr_measure_batch(B, S, N, seed))
         if not all(torch.equal(g, w) for g, w in zip(lr_kernel.lr_measure(*a, N),
                                                      lr_kernel.lr_measure_plain(*a, N))):
@@ -1639,8 +1851,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"kernels, wide: adversarial cases equal the plain versions exactly: parse_scan "
           f"{len(kernel_cases.PARSE_CASES_WIDE)} wide, {len(parse_sets)} at partial segments "
-          f"and 1 to 4 MiB; lr_measure {len(kernel_cases.LR_CASES_WIDE)} wide, "
-          f"{len(kernel_cases.LR_CASES_MIB)} at 512 KiB and 1 MiB; quarter_hist "
+          f"and 1 to 16 MiB; lr_measure {len(kernel_cases.LR_CASES_WIDE)} wide, "
+          f"{len(kernel_cases.LR_CASES_MIB)} at 512 KiB and 1 MiB, "
+          f"{len(kernel_cases.LR_CASES_16MIB)} at 16 MiB and 512 or 1,024 segments; quarter_hist "
           f"{len(kernel_cases.HIST_CASES_WIDE)} wide, {len(kernel_cases.HIST_CASES_GRANULE)} at "
           f"1 MiB, 4 MiB and 4,112 (aligned and one element in); token_fields "
           f"{len(kernel_cases.FIELD_CASES_GRANULE)} at 1 MiB and 4,112 (both forms); phase done "
@@ -1848,7 +2061,7 @@ def main() -> int:
     print(f"margins: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------------- chunks
-    chunk_launches, chunk_rows = chunks_phase(dt, cuda, pg11, wall_of)
+    chunk_launches, chunk_rows, wide_runs = chunks_phase(dt, cuda, wall_of)
     print(f"chunks: phase done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -1870,6 +2083,8 @@ def main() -> int:
     mib = chunk_launches["default", MIB]
     high_mib = chunk_launches["high", MIB]
     mib2, mib4 = chunk_launches["default", 2 * MIB], chunk_launches["default", 4_161_280]
+    mib16 = chunk_launches["default_segs512", 16 * MIB]
+    wide_keys = [(p, E, f"{p}_{E >> 20}m") for p, E in WIDE_CHUNK_RUNS if p != "default_segs512"]
     chunk_key = {"lr_measure": "lr_measure", "parse_scan": "parse_scan",
                  "package_merge": "lengths_by_rank", "token_fields": "token_fields",
                  "quarter_hist": "quarter_hist"}
@@ -1915,14 +2130,19 @@ def main() -> int:
             "launches_chunks_high_mib": high_mib[name],
             "launches_chunks_mib2": mib2[name],
             "launches_chunks_mib4": mib4[name],
+            "launches_chunks_mib16": mib16[name],
+            "launches_chunks_wide": sum(chunk_launches[p, E][name] for p, E, _ in wide_keys),
             "mib_batch": corpus.BATCH_SIZE,
             **{f"mib_{k}": v for k, v in chunk_rows["mib", chunk_key[name]].items()},
         })
         if name != "lr_measure":  # above 1 MiB Default's local pass is on the tiled path
-            for row_key, E in (("mib2", 2 * MIB), ("mib4", 4_161_280)):
+            for row_key, E in (("mib2", 2 * MIB), ("mib4", 4_161_280), ("mib16", 16 * MIB)):
                 rows[-1][f"{row_key}_batch"] = corpus.default_batch_size(E)
                 rows[-1].update({f"{row_key}_{k}": v
                                  for k, v in chunk_rows[row_key, chunk_key[name]].items()})
+            rows[-1]["chunks_wide"] = {
+                key: {"batch": corpus.default_batch_size(E), **chunk_rows[key, chunk_key[name]]}
+                for _, E, key in wide_keys}
         if name == "parse_scan":
             rows[-1].update({f"granule_{k}": v for k, v in chunk_rows["granule", name].items()})
             rows[-1].update({f"fast4m_{k}": v for k, v in chunk_rows["fast4m", name].items()})
@@ -1938,7 +2158,8 @@ def main() -> int:
     global_row["launches_chunks_high_mib"] = high_mib[TILED]
     global_row.update({f"high_mib_{k}": v for k, v in chunk_rows["high_mib", "lr_measure"].items()})
     global_row["launches_chunks_high_2m"] = chunk_launches["high", 2_064_128][TILED]
-    for row_key, launched, E in (("mib2", mib2, 2 * MIB), ("mib4", mib4, 4_161_280)):
+    for row_key, launched, E in (("mib2", mib2, 2 * MIB), ("mib4", mib4, 4_161_280),
+                                 ("mib16", mib16, 16 * MIB)):
         global_row[f"launches_chunks_{row_key}"] = launched[TILED]
         global_row[f"{row_key}_batch"] = corpus.default_batch_size(E)
         global_row.update({f"{row_key}_{k}": v for k, v in chunk_rows[row_key, "lr_measure"].items()})
@@ -1976,7 +2197,14 @@ def main() -> int:
           "Default's local pass on the tiled path, its plain_ms on plain_rows rows); parse_scan's "
           "fast4m_* at fast's first batch of 4 MiB chunks; the "
           "lr_measure_global row's high_mib_* at high's 1 MiB chunks, its local pass on the "
-          "tiled path, and launches_chunks_high_2m of the timed high run at 2,064,128 B")
+          "tiled path, and launches_chunks_high_2m of the timed high run at 2,064,128 B; "
+          "launches_chunks_mib16 of the timed Default run at 512 segments and 16 MiB chunks, "
+          "mib16_* at its first batch (4 chunks; lr_measure's tiled path in the "
+          "lr_measure_global row), launches_chunks_wide the sum over the timed fast and rle "
+          "runs at 8 and 16 MiB and huffman_only and turbo at 16 MiB, chunks_wide their first "
+          "batches' ms, plain_ms and bound_ms by run; the CHUNKS_WIDE line holds those runs' "
+          "MB/s, ratio, peak GiB and batches")
+    print("CHUNKS_WIDE " + json.dumps({f"{p} {E}": v for (p, E), v in wide_runs.items()}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

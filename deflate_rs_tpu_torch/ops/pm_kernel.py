@@ -66,7 +66,7 @@ def lengths_by_rank(leaf_vals: torch.Tensor, max_len: int) -> torch.Tensor:
 
     Args:
       leaf_vals: int32[R, A] per-row frequencies sorted ascending, ``BIG``
-        for unused symbols; the live ones of a row sum to at most 2**22 + 1
+        for unused symbols; the live ones of a row sum to at most 2**24 + 1
         (``package_merge.MAX_ROW_SUM``), so no package reaches ``BIG``.
       max_len: depth limit (15 for litlen/dist, 7 for the clen alphabet).
 

@@ -8,7 +8,7 @@ to round it the right way, so the exact integer count of
 :func:`proxy_code_lengths` agrees.  Near ``tot == f << k`` it need not: the
 exact count steps from ``k`` to ``k + 1`` between ``tot == f << k`` and
 ``tot == (f << k) + 1``, and the JAX form steps at ``tot == (f << k) + c``,
-where the switch offset ``c`` of the pair (k, f) lies between -5 and 8:
+where the switch offset ``c`` of the pair (k, f) lies between -31 and 40:
 
 - ``c <= 0``: the JAX form gives ``k + 1`` from ``-c`` below ``f << k``
   (``c == 0``: at the exact ratio alone, for some pairs at any total);
@@ -16,27 +16,29 @@ where the switch offset ``c`` of the pair (k, f) lies between -5 and 8:
 
 How far the step moves grows with the total, float32's spacing at
 ``log2(tot)`` being fixed against a gap ``log2(1 + d / tot)`` that shrinks:
-no pair has ``c`` outside 0..1 below a total of 647,681, and none outside
--1..2 up to 1,048,641.  Of the 3,145,536 pairs above 1,048,641 (k from 1
-to 14, totals up to ``TOT_MAX``), 2,232,341 step elsewhere than the exact
-count (``c != 1``), 927,200 of them two or more totals from it (``c <= -1``
-or ``c >= 3``).
+no pair has ``c`` outside 0..1 below a total of 647,681, none outside
+-1..2 up to 1,048,641, -5..8 up to 4,194,369 (4 MiB chunks), -11..16 up to
+8,388,673 and -31..40 up to ``TOT_MAX``.  Past 2**24 float32 rounds the
+total itself (to an even integer), which moves the step but keeps it a step.
 
-The offsets are held in one committed table, ``data/proxy_switch.npy``: one
-entry per (k, f) with ``1 <= k <= 14`` and ``f << k <= TOT_MAX``, rows of
-increasing k, f from 1, each ``c - C_MIN`` in four bits, two entries a byte
-(the first in the low bits).  The JAX form is a step of ``tot`` at each
-pair (checked at every total within 10 of ``f << k``); the table was
-generated from the JAX expression itself, in the encoder's jit forms of a
-range histogram (``[R, 286]`` and ``[R, 30]`` give the same lengths at every
-total within 10 of ``f << k`` over the whole table);
-``tests/test_torch_proxy.py`` regenerates it in both forms and compares (run
-that file as a script to rewrite it).  The lookup is integer work, so every
-device gives the same lengths.
+The offsets are held in one committed table, ``data/proxy_switch.i8.xz``:
+one entry per (k, f) with ``1 <= k <= 14`` and ``f << k <= TOT_MAX``, rows
+of increasing k, f from 1, each ``c`` one int8, the whole compressed with
+lzma (16,776,255 entries in about 1 MB; unpacked once a process).  The JAX
+form is a step of ``tot`` at each pair; the table was generated from the
+JAX expression itself, in the encoder's jit forms of a range histogram
+(``[R, 30]`` at every total from ``f << k`` - 64 to + 64, ``[R, 286]`` on
+both sides of each step; up to 4,194,369 both forms at every total within
+10 of ``f << k``); ``tests/test_torch_proxy.py`` and
+``tests/test_torch_proxy_wide_*.py`` hold it to both forms (run the first
+as a script to rewrite it).  The lookup is integer work, so every device
+gives the same lengths.
 """
 
 from __future__ import annotations
 
+import functools
+import lzma
 import os
 
 import numpy as np
@@ -45,14 +47,13 @@ import torch
 from ..constants import MAX_CODE_LENGTH
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
-TABLE_PATH = os.path.join(DATA_DIR, "proxy_switch.npy")
-# Largest symbol total a range histogram reaches: the 4,194,304 tokens of the
-# widest chunk the corpus engine takes (``parallel/corpus.py``:
+TABLE_PATH = os.path.join(DATA_DIR, "proxy_switch.i8.xz")
+# Largest symbol total a range histogram reaches: the 16,777,216 tokens of
+# the widest chunk the corpus engine takes (``parallel/corpus.py``:
 # ``MAX_CHUNK_SIZE``), plus EOB, with a margin wider than any switch offset,
 # so a total's nearest ``f << k`` above it is an entry of the table.
-TOT_MAX = (1 << 22) + 65
+TOT_MAX = (1 << 24) + 65
 K_MAX = MAX_CODE_LENGTH - 1  # at k = 15 the clip hides any rounding
-C_MIN = -7  # switch offsets are stored as c - C_MIN, 0..15
 # Token bits below this are exact in float32 whatever the order of the sum.
 F32_EXACT_BITS = 1 << 24
 
@@ -77,21 +78,27 @@ def row_offsets() -> np.ndarray:
     return off
 
 
-def pack_switch_table(c: np.ndarray) -> np.ndarray:
-    """uint8 nibble pairs of the switch offsets ``c`` (the file's form)."""
-    v = np.asarray(c, np.int64) - C_MIN
-    if v.min() < 0 or v.max() > 15:
-        raise ValueError(f"switch offsets {int(c.min())}..{int(c.max())} do not fit four bits")
-    v = np.concatenate([v, np.zeros(len(v) % 2, np.int64)]).astype(np.uint8)
-    return v[0::2] | (v[1::2] << 4)
+def pack_switch_table(c: np.ndarray) -> bytes:
+    """The file's form of the switch offsets ``c``: int8, lzma-compressed."""
+    c = np.asarray(c, np.int64)
+    if c.size and (c.min() < -128 or c.max() > 127):
+        raise ValueError(f"switch offsets {int(c.min())}..{int(c.max())} do not fit int8")
+    return lzma.compress(c.astype(np.int8).tobytes(), preset=9 | lzma.PRESET_EXTREME)
+
+
+@functools.lru_cache(maxsize=1)
+def _table_bytes() -> bytes:
+    with open(TABLE_PATH, "rb") as f:
+        raw = lzma.decompress(f.read())
+    if len(raw) != table_size():
+        raise ValueError(f"{TABLE_PATH}: {len(raw)} entries, expected {table_size()}")
+    return raw
 
 
 def load_switch_table() -> np.ndarray:
     """int8[table_size()]: the switch offset ``c`` of every (k, f) (the
     operand ``table`` of :func:`proxy_code_lengths`)."""
-    packed = np.load(TABLE_PATH)
-    v = np.stack([packed & 15, packed >> 4], axis=1).reshape(-1)[: table_size()]
-    return v.astype(np.int8) + np.int8(C_MIN)
+    return np.frombuffer(_table_bytes(), np.int8).copy()
 
 
 def _switch_at(f, k, table, offsets):
@@ -127,12 +134,18 @@ def proxy_code_lengths(tot: torch.Tensor, f: torch.Tensor, table: torch.Tensor,
 
 def xla_f32_row_sum(x: torch.Tensor) -> torch.Tensor:
     """float32 sums over the last axis of ``x``, added in the order of the
-    JAX package's reduction on the CPU: a row of more than 32 values (the
+    JAX package's reduction on the CPU.  A row of more than 32 values (the
     litlen histograms' 286) is padded with zeros to whole windows of 32, half
     the padding before it, each window summed in order and then the windows
     in order (XLA's tree-reduction rewrite, ``reduce-window`` of 32 then a
-    reduce); a shorter row (the distance histograms' 30) in order.  Every
-    addition rounds to float32, as XLA's do."""
+    reduce).  A shorter row (the distance histograms' 30) is XLA's
+    vectorized row reduction: 8 lanes, lane j summing values j, j + 8, ...
+    of the first whole multiple of 8 in order, the lanes then added as a
+    halving tree (lane j + lane j + 4, then + 2, then + 1), and the values
+    past the last multiple of 8 added in order after it (measured against
+    the JAX form at totals up to 2**24 + 1, where the order shows; below
+    about 2**22 the sums in order agree with it).  Every addition rounds to
+    float32, as XLA's do."""
     A = x.shape[-1]
     if A > 32:
         pad = -A % 32
@@ -141,8 +154,21 @@ def xla_f32_row_sum(x: torch.Tensor) -> torch.Tensor:
         for i in range(32):
             acc = acc + x[..., i]
         x = acc
+        acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+        for i in range(x.shape[-1]):
+            acc = acc + x[..., i]
+        return acc
+    m = A // 8 * 8
     acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
-    for i in range(x.shape[-1]):
+    if m:
+        lanes = x[..., :8]
+        for i in range(8, m, 8):
+            lanes = lanes + x[..., i : i + 8]
+        while lanes.shape[-1] > 1:
+            h = lanes.shape[-1] // 2
+            lanes = lanes[..., :h] + lanes[..., h:]
+        acc = lanes[..., 0]
+    for i in range(m, A):
         acc = acc + x[..., i]
     return acc
 

@@ -60,18 +60,19 @@ from ..runtime import native
 # ``tools/corpus_memory.py`` and ``chip_smoke.py``, PERF.md section 6), so
 # without a ``batch_size`` from the caller a batch holds at most
 # ``BATCH_PAYLOAD_BYTES`` of payload: 64 chunks up to 1 MiB, 32 of 2 MiB, 16
-# of 4 MiB (``default_batch_size``).
+# of 4 MiB, 8 of 8 MiB, 4 of 16 MiB (``default_batch_size``).
 BATCH_SIZE = 64
 BATCH_PAYLOAD_BYTES = 64 << 20
 QUEUE_DEPTH = 1
 
 # Chunk sizes: multiples of 16 (the JAX package's rule, from the row count
-# its parse kernel reshapes the emit region to) up to 4 MiB, the widest chunk
+# its parse kernel reshapes the emit region to) up to 16 MiB, the widest chunk
 # whose range totals the block-split proxy's switch table covers
-# (``ops/proxy.py``: ``TOT_MAX``).  The presets add rules of their own; see
+# (``ops/proxy.py``: ``TOT_MAX``; past 2**24 + 1 symbols float32 rounds the
+# JAX form's totals themselves).  The presets add rules of their own; see
 # ``check_chunk_size``.
 CHUNK_GRANULE = 16
-MAX_CHUNK_SIZE = 1 << 22
+MAX_CHUNK_SIZE = 1 << 24
 
 # Pipelines kept between calls, over all configurations together: each pins
 # ``queue_depth + 1`` staging and result buffers of a whole batch.
@@ -97,8 +98,9 @@ def check_chunk_size(E: int, options: CompressionOptions) -> None:
     Default and high reach their own end below the cap: the long-range
     pass's harvest row, ``(32,768 + E) / segments / 2`` positions, must stay
     below 2**15, so Default (64 segments) takes chunks up to 4,161,280 bytes
-    and high (32) up to 2,064,128; the presets without that pass take any
-    size up to the cap.  A block of a 4 MiB chunk holds at most 2**22
+    and high (32) up to 2,064,128, and a raised ``dom_segs`` moves that end
+    (512 segments reach the cap); the presets without that pass take any
+    size up to the cap.  A block of a 16 MiB chunk holds at most 2**24
     symbols, a frequency package-merge is proven at
     (``ops/package_merge.py``)."""
     if E <= 0 or E % CHUNK_GRANULE:
@@ -375,7 +377,7 @@ def compress_corpus(
 
     ``chunk_size`` is the per-chunk block granularity (the analogue of
     pigz's block size); the default is the one-shot path's 64 KiB and gives
-    its bytes exactly.  Larger chunks (up to 4 MiB) spread the fixed 32 KiB
+    its bytes exactly.  Larger chunks (up to 16 MiB) spread the fixed 32 KiB
     of history and the per-chunk tables over more payload; the sizes taken
     are those of :func:`check_chunk_size` at ``options``.  The suffix-order
     matcher's candidate neighbourhoods dilute as the chunk grows, so the

@@ -1,9 +1,9 @@
-"""ctypes bindings for the native host runtime (repo-root csrc/deflate_runtime.cpp).
+"""ctypes bindings for the native host runtime (``csrc/deflate_runtime.cpp``).
 
-The same C source and plain-C ABI the JAX package binds
+The port's own copy of the plain-C ABI the JAX package binds
 (deflate_rs_tpu/runtime/native.py), built with g++ on first use into the
 port's own build directory, so the two packages never race on one library
-file.  Every entry point has a NumPy/stdlib fallback: the native path speeds
+file and the port builds nothing from outside its package.  Every entry point has a NumPy/stdlib fallback: the native path speeds
 up the host-side serial tail (bit splicing, checksums) and is never required
 for correctness.
 """
@@ -19,9 +19,9 @@ import zlib
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "deflate_runtime.cpp")
+SRC = os.path.join(_PKG, "csrc", "deflate_runtime.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
-_LIB_PATH = os.path.join(BUILD_DIR, "libdeflate_runtime.so")
+LIB_PATH = os.path.join(BUILD_DIR, "libdeflate_runtime.so")
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -36,18 +36,18 @@ def _load():
             return _lib
         _tried = True
         try:
-            if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC):
+            if not os.path.exists(LIB_PATH) or os.path.getmtime(LIB_PATH) < os.path.getmtime(SRC):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 # Private temp path + atomic rename: a concurrent process
                 # never dlopens a half-written library.
-                tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+                tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+                    ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, SRC],
                     check=True,
                     capture_output=True,
                 )
-                os.replace(tmp, _LIB_PATH)
-            lib = ctypes.CDLL(_LIB_PATH)
+                os.replace(tmp, LIB_PATH)
+            lib = ctypes.CDLL(LIB_PATH)
         except (OSError, subprocess.CalledProcessError):
             _lib = None
             return _lib

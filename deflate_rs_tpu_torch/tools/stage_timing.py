@@ -29,6 +29,7 @@ no device metric.
 
     python3 -m deflate_rs_tpu_torch.tools.stage_timing [--preset default] [--batch 64] [--emit 65536]
     python3 -m deflate_rs_tpu_torch.tools.stage_timing --emit 4194304  # 16 chunks of 4 MiB
+    python3 -m deflate_rs_tpu_torch.tools.stage_timing --preset fast --emit 16777216  # 4 of 16 MiB
     python3 -m deflate_rs_tpu_torch.tools.stage_timing --device cpu --batch 2 --emit 4096
 """
 
@@ -163,7 +164,7 @@ def stage_rows(preset: str = "default", batch: int | None = None, emit: int = 65
     """One dict per stage of ``ChunkEncoder.forward``, then one for the whole
     ``forward`` (``"stage": "forward"``), as the module docstring says.
     ``emit`` is any chunk size the corpus engine takes at ``preset``
-    (``corpus.check_chunk_size``, up to 4 MiB), and ``batch`` by default its
+    (``corpus.check_chunk_size``, up to 16 MiB), and ``batch`` by default its
     batch at that size (``corpus.default_batch_size``)."""
     from ..compression_options import CompressionOptions
     from ..ops.chunk_encode import ChunkEncoder
@@ -218,7 +219,7 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", default="default", choices=PRESETS)
     ap.add_argument("--batch", type=int, default=None,
                     help="chunks (default: the corpus engine's batch at --emit, 64 up to 1 MiB)")
-    ap.add_argument("--emit", type=int, default=65536, help="chunk size, up to 4 MiB")
+    ap.add_argument("--emit", type=int, default=65536, help="chunk size, up to 16 MiB")
     ap.add_argument("--reps", type=int, default=5, help="timed runs per stage (median)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     a = ap.parse_args(argv)

@@ -146,6 +146,10 @@ PARSE_CASES_MIB = [(1048576, 8, 0),
                    # 32 windows, and 64 whose last ends in a partial segment
                    # of 48 positions (4 MiB - 16: fast's and rle's widest).
                    (2097152, 6, 1), (4194288, 6, 2)]
+# (E, B, seed) of parse_scan_batch_wide at 128 and 256 windows, each last
+# window ending in a partial segment of 48 positions (8 and 16 MiB - 16; the
+# chip only: the serial models take minutes there).
+PARSE_CASES_16MIB = [(8388592, 4, 3), (16777200, 4, 4)]
 
 
 def sorted_leaves(freqs: np.ndarray) -> np.ndarray:
@@ -190,8 +194,8 @@ M_SWEEP = (0, 1, 2, 3, 31, 32, 33, 64, 65, 255, 256, 286)
 
 
 FREQ_2P20_CASE = "freq_2p20_286"
-# The cases with a leaf of 2**21 or 2**22 (blocks of 2 and 4 MiB chunks).
-WIDE_LEAF_CASES = ("freq_2p21_286", "freq_2p22_286")
+# The cases with a leaf of 2**21 to 2**24 (blocks of 2 to 16 MiB chunks).
+WIDE_LEAF_CASES = ("freq_2p21_286", "freq_2p22_286", "freq_2p23_286", "freq_2p24_286")
 
 
 def package_merge_cases() -> list:
@@ -233,6 +237,20 @@ def package_merge_cases() -> list:
     four[0, 0] = four[1, 97] = 1 << 22
     four[:, 256] = 1
     cases.append((WIDE_LEAF_CASES[1], four, 15))
+    # A leaf of 2**23 on symbols 0 and 97, and a row whose leaves halve from
+    # 2**23 down to 1, summing with EOB to 2**24 (an 8 MiB chunk's block).
+    eight = np.zeros((3, 286), np.int32)
+    eight[0, 0] = eight[1, 97] = 1 << 23
+    halving = [97, 32, 101, 116, 0, 10] + list(range(200, 218))
+    eight[2, halving] = [1 << (23 - i) for i in range(len(halving))]
+    eight[:, 256] = 1
+    cases.append((WIDE_LEAF_CASES[2], eight, 15))
+    # A leaf of 2**24 (a 16 MiB block of one byte value) on symbols 0 and 97:
+    # rows of ``package_merge.MAX_ROW_SUM``.
+    sixteen = np.zeros((2, 286), np.int32)
+    sixteen[0, 0] = sixteen[1, 97] = 1 << 24
+    sixteen[:, 256] = 1
+    cases.append((WIDE_LEAF_CASES[3], sixteen, 15))
     cases.append(("no_rows", np.zeros((0, 286), np.int32), 15))
     return cases
 
@@ -385,6 +403,10 @@ LR_CASES_WIDE = ([(1, 64, 294912, seed) for seed in range(len(LR_PATTERNS))]
 LR_CASES_MIB = ([(1, 64, 1081344, seed) for seed in range(len(LR_PATTERNS))]
                 + [(2, 64, 557056, 1)]
                 + [(1, 32, 1081344, seed) for seed in range(len(LR_PATTERNS))])
+# (B, S, N, seed) at 16 MiB chunks and a raised dom_segs: Default at 1,024
+# segments (windows of 4,171 words: the block path, 1,024 blocks a chunk)
+# and at 512 (8,275 words: the tiled path).
+LR_CASES_16MIB = [(1, 1024, 16809984, 0), (1, 1024, 16809984, 3), (1, 512, 16809984, 1)]
 
 
 # ---------------------------------------------- lr_measure, whole-chunk window

@@ -1,6 +1,6 @@
 """The corpus engine and the sharded encoder at the chunk sizes above
 256 KiB, against the JAX package's bytes: Default at 512 KiB and 1 MiB (raw,
-and the zlib framing at 1 MiB), high at 512 KiB, the cap above 4 MiB, and the
+and the zlib framing at 1 MiB), high at 512 KiB, the cap above 16 MiB, and the
 sharded encoder at two gloo ranks with chunks of 4,112 bytes at fast.  The
 inputs mix text, random bytes, runs and records
 (``tests/torch_corpus_data.py``); each JAX stream is computed once.  The
@@ -73,9 +73,9 @@ def test_wide_chunks_zlib_framing_equals_jax():
     assert zlib.decompress(frame[0]) == _data("default_1m")
 
 
-@pytest.mark.parametrize("E", [4_194_304 + 256, 4_194_304 + 16, 8 << 20])
+@pytest.mark.parametrize("E", [16_777_216 + 256, 16_777_216 + 16, 32 << 20])
 def test_above_the_cap_raises_at_the_entry(E):
-    with pytest.raises(ValueError, match="at most 4194304"):
+    with pytest.raises(ValueError, match="at most 16777216"):
         tcorpus.compress_corpus(b"abc", chunk_size=E, **CPU)
 
 

@@ -303,6 +303,27 @@ def test_lr_measure_adversarial_mib(dev, B, S, N, seed):
     assert (lr_kernel._TILED.launches > before) == tiled
 
 
+@pytest.mark.parametrize("E,B,seed", kernel_cases.PARSE_CASES_16MIB)
+def test_parse_scan_128_and_256_windows(dev, E, B, seed):
+    """8 and 16 MiB - 16: 128 and 256 windows a chunk, the last ending in a
+    partial segment."""
+    steps, n = kernel_cases.parse_scan_batch_wide(E, B, seed)
+    s, nn = torch.from_numpy(steps).to(dev), torch.from_numpy(n).to(dev)
+    _same(parse_scan.parse_scan(s, nn), parse_scan.parse_scan_plain(s, nn))
+
+
+@pytest.mark.parametrize("B,S,N,seed", kernel_cases.LR_CASES_16MIB)
+def test_lr_measure_adversarial_16mib(dev, B, S, N, seed):
+    """Default's local pass at 16 MiB chunks and a raised dom_segs: the
+    block path at 1,024 segments, the tiled path at 512."""
+    buf, doms = (torch.from_numpy(a).to(dev) for a in kernel_cases.lr_measure_batch(B, S, N, seed))
+    tiled = lr_kernel.window_words(N, S) > lr_kernel.MAX_WINDOW_WORDS
+    assert tiled == (S == 512)
+    before = lr_kernel._TILED.launches
+    _same(lr_kernel.lr_measure(buf, doms, N), lr_kernel.lr_measure_plain(buf, doms, N))
+    assert (lr_kernel._TILED.launches > before) == tiled
+
+
 @pytest.mark.parametrize("B,E,nq,seed", kernel_cases.FIELD_CASES_GRANULE)
 def test_token_fields_granule(dev, B, E, nq, seed):
     """Rows of 1 MiB and of 4,112 positions, aligned and one element in."""

@@ -5,20 +5,24 @@ float32 (``deflate_rs_tpu/ops/chunk_encode.py:380-393``); near
 ``tot == f << k`` XLA's ``log2`` steps from ``k`` to ``k + 1`` up to a few
 totals away from where the exact count does.  The port reproduces it with
 exact integers plus a committed table of each pair's switch offset
-(``deflate_rs_tpu_torch/data/proxy_switch.npy``).  This file regenerates that
-table from the JAX expression in both of the encoder's jit forms, ``[R, 286]``
-(the litlen histograms') and ``[R, 30]`` (the distance histograms'), in
-slices of ``SLICE_ROWS`` rows, at every total within 10 of each ``f << k``
-(each (delta, width) evaluated once a process, ``_delta_lengths``), and
-compares it with the committed one; the exact-ratio entries of the table's
-first form, which covered totals up to 262,209, are held to that form's
-digest.  Run it as a script to rewrite the table:
+(``deflate_rs_tpu_torch/data/proxy_switch.i8.xz``).  This file regenerates
+the table's entries at totals up to 4,194,369 (chunks up to 4 MiB) from the
+JAX expression in both of the encoder's jit forms, ``[R, 286]`` (the litlen
+histograms') and ``[R, 30]`` (the distance histograms'), in slices of
+``SLICE_ROWS`` rows, at every total within 10 of each ``f << k`` (each
+(delta, width) evaluated once a process, ``_delta_lengths``), and compares
+them with the committed ones; the exact-ratio entries of the table's first
+form, which covered totals up to 262,209, are held to that form's digest.
+The entries past 4,194,369 are held in ``tests/test_torch_proxy_wide_*.py``.
+Run this file as a script to rewrite the whole table (about seven minutes;
+``torch_proxy_ref.generate_whole_table``):
 
     JAX_PLATFORMS=cpu python tests/test_torch_proxy.py
 """
 
 import functools
 import hashlib
+import lzma
 import os
 import sys
 
@@ -37,150 +41,86 @@ import jax.numpy as jnp  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from deflate_rs_tpu_torch.ops import proxy  # noqa: E402
+from torch_proxy_ref import (  # noqa: E402
+    DELTAS, ND, NL, NARROW_TOT_MAX, TOT_MAX_4MIB, column0_lengths, generate_whole_table,
+    jax_proxy_bits, measured, switch_offsets, table_index, table_pairs)
 
-NL = 286
-ND = 30
-MAXLEN = 15
-SLICE_ROWS = 65536  # rows of one [R, width] evaluation; the last slice is padded
-# The table's first form covered totals up to 262,209 (chunks up to 256 KiB):
-# the sha256 of its packed bits, generated in one [262192, 286] array.
-NARROW_TOT_MAX = 262209
+# The sha256 of the packed bits of the table's first form (totals up to
+# 262,209), generated in one [262192, 286] array.
 NARROW_SHA256 = "d522d233a7df52d6e854159225d2c71ad6a8e748a898b67dce43233fbb2ad087"
-# Totals from f << k at which the generator measures the JAX form: the
-# switch offsets lie in -5..8, and from 8 on either side of f << k the exact
-# count alone is right.
-DELTAS = range(-10, 11)
-# Pairs above a total of 1,048,641 whose switch offset is not 1, and those
-# of them two or more from it (the module docstring of ops/proxy.py).
+# Pairs above a total of 1,048,641 and up to 4,194,369 whose switch offset is
+# not 1, and those of them two or more from it (the module docstring of
+# ops/proxy.py).
 WIDE_OFF_EXACT = 2_232_341
 WIDE_OFF_BY_TWO = 927_200
+# The pairs (k, f) this file measures, f << k <= 4,194,369, and their flat
+# index in the committed table.
+KS, FS = table_pairs(TOT_MAX_4MIB)
+FLAT = table_index(KS, FS)
 
 
-def _jax_lengths(freq_r):
-    """The expression of deflate_rs_tpu/ops/chunk_encode.py:382-386."""
-    tot = jnp.sum(freq_r, axis=1, keepdims=True).astype(jnp.float32)
-    f = freq_r.astype(jnp.float32)
-    return jnp.clip(
-        jnp.ceil(jnp.log2(jnp.maximum(tot, 1.0)) - jnp.log2(jnp.maximum(f, 1.0))),
-        1.0, float(MAXLEN),
-    )
-
-
-def _jax_proxy_bits(freq_r):
-    """``_proxy_bits`` of deflate_rs_tpu/ops/chunk_encode.py:380-393."""
-    lens = _jax_lengths(freq_r)
-    bits = jnp.sum(jnp.where(freq_r > 0, freq_r.astype(jnp.float32) * lens, 0.0), axis=1)
-    used = freq_r > 0
-    u = jnp.sum(used, axis=1)
-    prev = jnp.concatenate([jnp.zeros((freq_r.shape[0], 1), bool), used[:, :-1]], axis=1)
-    z = jnp.sum(prev & ~used, axis=1)
-    return bits.astype(jnp.int32), u.astype(jnp.int32), z.astype(jnp.int32)
-
-
-def _table_pairs(tot_max: int = proxy.TOT_MAX):
-    """(k, f) of every table entry, in the table's order, for a table that
-    covers totals up to ``tot_max``."""
-    ks, fs = [], []
-    for k in range(1, proxy.K_MAX + 1):
-        count = tot_max >> k
-        ks.append(np.full(count, k, np.int64))
-        fs.append(np.arange(1, count + 1, dtype=np.int64))
-    return np.concatenate(ks), np.concatenate(fs)
-
-
-def _pair_rows(f, tot, width: int = NL):
-    """[P, width] int32 histograms with f in column 0 and total tot."""
-    rows = np.zeros((len(f), width), np.int32)
-    rows[:, 0] = f
-    rows[:, 1] = tot - f
-    return rows
-
-
-_jit_lengths = jax.jit(_jax_lengths)
-
-
-def _column0_lengths(f, tot, width: int) -> np.ndarray:
-    """The JAX lengths of column 0 of ``_pair_rows(f, tot, width)``,
-    evaluated on [SLICE_ROWS, width] arrays (one compiled form a width; the
-    last slice padded with rows of f = 1 at total 2)."""
-    out = np.empty(len(f), np.int64)
-    rows = _pair_rows(np.ones(SLICE_ROWS, np.int64), np.full(SLICE_ROWS, 2, np.int64), width)
-    for lo in range(0, len(f), SLICE_ROWS):
-        n = min(SLICE_ROWS, len(f) - lo)
-        rows[:n, 0] = f[lo : lo + n]
-        rows[:n, 1] = tot[lo : lo + n] - f[lo : lo + n]
-        if n < SLICE_ROWS:
-            rows[n:, :2] = 1
-        out[lo : lo + n] = np.asarray(_jit_lengths(rows))[:n, 0]
-    return out
+def _table_pairs(tot_max: int = TOT_MAX_4MIB):
+    """(k, f) of every table entry with ``f << k <= tot_max``."""
+    return (KS, FS) if tot_max == TOT_MAX_4MIB else table_pairs(tot_max)
 
 
 @functools.lru_cache(maxsize=None)
 def _delta_lengths(delta: int, width: int) -> np.ndarray:
     """int8[P]: the JAX lengths of column 0 at tot == (f << k) + delta for
-    every table pair (k, f) with tot >= f, in the ``[R, width]`` jit form;
-    -1 at the other pairs.  Read-only: each (delta, width) is evaluated once
-    a process and shared by the tests."""
-    ks, fs = _table_pairs()
-    tot = (fs << ks) + delta
-    keep = tot >= fs
-    out = np.full(len(fs), -1, np.int8)
-    out[keep] = _column0_lengths(fs[keep], tot[keep], width)
+    every pair (k, f) of ``KS, FS`` with tot >= f, in the ``[R, width]`` jit
+    form; -1 at the other pairs.  Read-only: each (delta, width) is
+    evaluated once a process and shared by the tests."""
+    tot = (FS << KS) + delta
+    keep = tot >= FS
+    out = np.full(len(FS), -1, np.int8)
+    out[keep] = column0_lengths(FS[keep], tot[keep], width)
     out.flags.writeable = False
     return out
 
 
 def generate_table(width: int = NL) -> np.ndarray:
-    """Flat bool table: the JAX form gives k + 1 at tot == f << k."""
-    ks, _ = _table_pairs()
+    """bool[P] over ``KS, FS``: the JAX form gives k + 1 at tot == f << k."""
     lens = _delta_lengths(0, width).astype(np.int64)
-    assert set(np.unique(lens - ks)) <= {0, 1}
-    return lens == ks + 1
+    assert set(np.unique(lens - KS)) <= {0, 1}
+    return lens == KS + 1
 
 
 def generate_neighbour_tables(width: int = NL) -> np.ndarray:
-    """bool[2, P]: the JAX form gives k + 1 at tot == (f << k) - 1 (the exact
-    count k), and k at tot == (f << k) + 1 (the exact count k + 1)."""
-    ks, _ = _table_pairs()
+    """bool[2, P] over ``KS, FS``: the JAX form gives k + 1 at tot ==
+    (f << k) - 1 (the exact count k), and k at tot == (f << k) + 1 (the
+    exact count k + 1)."""
     below = _delta_lengths(-1, width).astype(np.int64)
     above = _delta_lengths(1, width).astype(np.int64)
-    assert set(np.unique(below - ks)) <= {0, 1} and set(np.unique(above - ks)) <= {0, 1}
-    return np.stack([below == ks + 1, above == ks])
+    assert set(np.unique(below - KS)) <= {0, 1} and set(np.unique(above - KS)) <= {0, 1}
+    return np.stack([below == KS + 1, above == KS])
 
 
 def roundup_table() -> np.ndarray:
-    """bool[P] from the committed switch offsets: the JAX form gives
-    ``k + 1`` at ``tot == f << k`` (the table's form up to 1,048,641)."""
+    """bool[P] over the whole table from the committed switch offsets: the
+    JAX form gives ``k + 1`` at ``tot == f << k`` (the table's form up to
+    1,048,641)."""
     return proxy.load_switch_table() <= 0
 
 
 def neighbour_tables() -> np.ndarray:
-    """bool[2, P] from the committed switch offsets: the JAX form gives
-    ``k + 1`` at ``(f << k) - 1``, and ``k`` at ``(f << k) + 1``."""
+    """bool[2, P] over the whole table from the committed switch offsets:
+    the JAX form gives ``k + 1`` at ``(f << k) - 1``, and ``k`` at
+    ``(f << k) + 1``."""
     c = proxy.load_switch_table()
     return np.stack([c <= -1, c >= 2])
 
 
 def generate_switch_table(width: int = ND) -> np.ndarray:
-    """int64[P]: the switch offset c of every (k, f), the least d of
-    ``DELTAS`` at which the JAX form gives k + 1 at tot == (f << k) + d.
+    """int64[P] over ``KS, FS``: the switch offset c of every (k, f), the
+    least d of ``DELTAS`` at which the JAX form gives k + 1 at tot ==
+    (f << k) + d.
 
     Only totals whose exact count is k or k + 1 (``f << (k - 1) < tot <=
     f << (k + 1)``) are measured; at every one of them the JAX form must be
     the step ``k + (d >= c)``; in the ``[R, width]`` jit form."""
-    ks, fs = _table_pairs()
-    base = fs << ks
-    c = np.full(len(fs), DELTAS[-1] + 1, np.int64)
-    lens = {}
-    for d in DELTAS:
-        tot = base + d
-        inw = (tot > base >> 1) & (tot <= base << 1)
-        got = np.where(inw, _delta_lengths(d, width), -1).astype(np.int64)
-        lens[d] = got, inw
-        c = np.where(inw & (got == ks + 1) & (c > d), d, c)
-    for d, (got, inw) in lens.items():
-        bad = inw & (got != ks + (d >= c))
-        assert not bad.any(), (d, int(bad.sum()))
+    base = FS << KS
+    c = switch_offsets(KS, FS, DELTAS, width, lengths=lambda d: np.where(
+        measured(base, d), _delta_lengths(d, width), -1))
     assert DELTAS[0] < c.min() and c.max() <= DELTAS[-1]
     return c
 
@@ -220,15 +160,16 @@ def _port_bits(freq, table=None):
 
 
 def test_committed_table_equals_jax_generated():
-    """The whole exact-ratio table (the pairs whose switch offset is 0 or
-    less), regenerated slice by slice in both jit forms, equals the
-    committed one; its 262,191 entries at totals up to 262,209 are those of
-    its first form, bit for bit (the digest of that form's packed bits)."""
+    """The exact-ratio table (the pairs whose switch offset is 0 or less) up
+    to a total of 4,194,369, regenerated slice by slice in both jit forms,
+    equals the committed one; its 262,191 entries at totals up to 262,209
+    are those of its first form, bit for bit (the digest of that form's
+    packed bits)."""
     table = roundup_table()
-    assert proxy.TOT_MAX == (1 << 22) + 65
+    assert proxy.TOT_MAX == (1 << 24) + 65
     assert table.size == proxy.table_size()
-    np.testing.assert_array_equal(generate_table(), table)
-    np.testing.assert_array_equal(generate_table(ND), table)
+    np.testing.assert_array_equal(generate_table(), table[FLAT])
+    np.testing.assert_array_equal(generate_table(ND), table[FLAT])
     narrow = narrow_entries(table)
     assert narrow.size == 262_191
     assert hashlib.sha256(np.packbits(narrow).tobytes()).hexdigest() == NARROW_SHA256
@@ -238,10 +179,10 @@ def test_committed_table_equals_jax_generated():
 
 def test_committed_neighbour_tables_equal_jax_generated():
     """Both neighbour tables (switch offsets -1 and less, 2 and more),
-    regenerated slice by slice in both jit forms, equal the committed ones;
-    none of their bits is set below a total of 647,681 (so chunks of up to
-    256 KiB never needed them)."""
-    tables = neighbour_tables()
+    up to a total of 4,194,369, regenerated slice by slice in both jit
+    forms, equal the committed ones; none of their bits is set below a total
+    of 647,681 (so chunks of up to 256 KiB never needed them)."""
+    tables = neighbour_tables()[:, FLAT]
     np.testing.assert_array_equal(generate_neighbour_tables(), tables)
     np.testing.assert_array_equal(generate_neighbour_tables(ND), tables)
     ks, fs = _table_pairs()
@@ -251,23 +192,25 @@ def test_committed_neighbour_tables_equal_jax_generated():
 
 
 def test_committed_switch_table_equals_jax_generated():
-    """The committed switch offsets, over the whole table, equal those
+    """The committed switch offsets up to a total of 4,194,369 equal those
     measured from the JAX form at every total within 10 of f << k, in the
     ``[R, 30]`` and the ``[R, 286]`` jit forms, where it is a step at each
-    pair; the file is their packed form."""
+    pair; the file is the packed form of the whole table."""
     c = proxy.load_switch_table()
     assert c.dtype == np.int8 and c.size == proxy.table_size()
     want = generate_switch_table()
-    np.testing.assert_array_equal(c, want)
-    np.testing.assert_array_equal(c, generate_switch_table(NL))
-    np.testing.assert_array_equal(np.load(proxy.TABLE_PATH), proxy.pack_switch_table(want))
+    np.testing.assert_array_equal(c[FLAT], want)
+    np.testing.assert_array_equal(c[FLAT], generate_switch_table(NL))
+    with open(proxy.TABLE_PATH, "rb") as f:
+        assert lzma.decompress(f.read()) == c.tobytes()
+    assert lzma.decompress(proxy.pack_switch_table(c)) == c.tobytes()
 
 
 def test_switch_offsets_move_with_the_total():
     """The offsets the module docstring states: 0..1 below a total of
-    647,681, -1..2 up to 1,048,641, -5..8 up to ``TOT_MAX``, and how many
-    pairs above 1,048,641 step off the exact count."""
-    c = proxy.load_switch_table().astype(np.int64)
+    647,681, -1..2 up to 1,048,641, -5..8 up to 4,194,369, and how many
+    pairs above 1,048,641 step off the exact count up to there."""
+    c = proxy.load_switch_table().astype(np.int64)[FLAT]
     ks, fs = _table_pairs()
     tot = fs << ks
     assert set(np.unique(c[tot + 1 < 647_681])) == {0, 1}
@@ -283,7 +226,7 @@ def test_neighbours_of_powers_of_two_need_no_table():
     256 KiB) the JAX form equals the exact integer count, in both jit
     forms."""
     ks, fs = _table_pairs(NARROW_TOT_MAX)
-    flat = proxy.row_offsets()[ks] + fs - 1
+    flat = np.searchsorted(FLAT, table_index(ks, fs))  # their place in KS, FS
     for delta in (-1, 1):
         tot = (fs << ks) + delta
         keep = tot - fs >= 0
@@ -319,7 +262,7 @@ def _hitting_rows(rng, R, lo_tot=0):
     form leaves the exact count (d at or past the switch offset below f << k,
     short of it above), the rest where it does not."""
     ks, fs = _table_pairs()
-    c = proxy.load_switch_table()
+    c = proxy.load_switch_table()[FLAT]
     cands = {}
     rows = np.zeros((R, NL), np.int64)
     for r in range(R):
@@ -351,7 +294,7 @@ def test_proxy_bits_equal_jax_on_table_hits(R, lo_tot):
     JAX form leaves the exact count and where it does not."""
     rows = _hitting_rows(np.random.default_rng(R + lo_tot), R, lo_tot)
     assert (rows.sum(axis=1) > lo_tot).all()
-    want = jax.jit(_jax_proxy_bits)(jnp.asarray(rows, jnp.int32))
+    want = jax.jit(jax_proxy_bits)(jnp.asarray(rows, jnp.int32))
     got = _port_bits(rows)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
@@ -362,7 +305,7 @@ def test_proxy_bits_equal_jax_on_random_histograms():
     rows = rng.integers(0, 3000, (300, NL))
     rows[rng.random((300, NL)) < 0.6] = 0
     rows[::7] = rng.integers(0, 3, (len(rows[::7]), NL))
-    want = jax.jit(_jax_proxy_bits)(jnp.asarray(rows, jnp.int32))
+    want = jax.jit(jax_proxy_bits)(jnp.asarray(rows, jnp.int32))
     got = _port_bits(rows)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
@@ -381,7 +324,7 @@ def test_proxy_bits_round_their_float32_sums_as_jax(width):
     weights[:, 0] += 1e-3
     tot = rng.integers(3_500_000, (1 << 22) + 2, R)
     rows = np.floor(weights / weights.sum(axis=1, keepdims=True) * tot[:, None]).astype(np.int64)
-    want = [np.asarray(w) for w in jax.jit(_jax_proxy_bits)(jnp.asarray(rows, jnp.int32))]
+    want = [np.asarray(w) for w in jax.jit(jax_proxy_bits)(jnp.asarray(rows, jnp.int32))]
     got = _port_bits(rows)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -396,7 +339,7 @@ def test_exact_count_alone_is_wrong_where_jax_rounds_up():
     1, so without the switch table the bits differ."""
     row = np.zeros((1, NL), np.int64)
     row[0, 0] = row[0, 1] = 3
-    want = np.asarray(jax.jit(_jax_proxy_bits)(jnp.asarray(row, jnp.int32))[0])
+    want = np.asarray(jax.jit(jax_proxy_bits)(jnp.asarray(row, jnp.int32))[0])
     assert int(want[0]) == 12
     exact = np.ones(proxy.table_size(), np.int8)
     assert int(_port_bits(row, exact)[0][0]) == 6
@@ -405,11 +348,11 @@ def test_exact_count_alone_is_wrong_where_jax_rounds_up():
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    c = generate_switch_table()
-    np.testing.assert_array_equal(c, generate_switch_table(NL))
+    c = generate_whole_table()
     os.makedirs(proxy.DATA_DIR, exist_ok=True)
-    np.save(proxy.TABLE_PATH, proxy.pack_switch_table(c))
-    ks, fs = _table_pairs()
+    with open(proxy.TABLE_PATH, "wb") as f:
+        f.write(proxy.pack_switch_table(c))
+    ks, fs = table_pairs()
     wide = c[(fs << ks) > 1_048_641]
     print(f"wrote {proxy.TABLE_PATH}: switch offsets {int(c.min())}..{int(c.max())} over "
           f"{c.size} pairs; {int((c <= 0).sum())} round up at f << k; above a total of "

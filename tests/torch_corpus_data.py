@@ -9,7 +9,10 @@ records: two chunks of 1 MiB, three of 512 KiB), "small_mix" (64 KiB of
 text, random bytes and runs), "salad_4m" (4 MiB of pg11's words in a seeded
 Zipf order: text that repeats little at long range) and "stored_then_text"
 (2 MiB of random bytes, then 1,000,000 B of that text: a stored chunk of
-2 MiB and a text chunk behind it).  ``jax_stream`` is ``deflate_rs_tpu.parallel.corpus``'s raw
+2 MiB and a text chunk behind it), "pg11_8m" and "pg11_16m" (pg11 repeated
+to one chunk of 8 or 16 MiB: text on which one block gives the space more
+than 2**20 literals) and "spread_16m" (16 MiB of seeded bytes on which no
+symbol of a block reaches 2**20, ``deflate_rs_tpu_torch.utils.mix.spread``).  ``jax_stream`` is ``deflate_rs_tpu.parallel.corpus``'s raw
 stream of one of them, ``jax_preset_stream`` the same at a preset (or the
 exception it raised), and ``check_against_jax`` holds the port's corpus
 engine to it.  Importing this module imports no JAX.
@@ -64,6 +67,13 @@ def inputs(name: str) -> bytes:
     if name == "stored_then_text":
         return (np.random.default_rng(4).integers(0, 256, 2 << 20, dtype=np.uint8).tobytes()
                 + word_salad(1_000_000, 4))
+    if name in ("pg11_8m", "pg11_16m"):
+        n = (8 if name == "pg11_8m" else 16) << 20
+        return (pg * (n // len(pg) + 1))[:n]
+    if name == "spread_16m":
+        from deflate_rs_tpu_torch.utils.mix import spread
+
+        return spread(16 << 20)
     if name == "small_mix":
         return (pg[:30_000] + rand[:12_000] + b"\x00" * 6_000 + b"ab" * 2_000
                 + pg[60_000:73_536])
