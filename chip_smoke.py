@@ -115,9 +115,9 @@ Phases (each prints a line; any failure exits non-zero):
    turns, three runs each, and high with ``lr_global=64`` once; a knob run
    must launch the tiled path and not the block path, every knob-free path
    the block path and not the tiled one.
-12. soak: ``tools/sharded_soak.py`` at world size 1 over NCCL on 256 MiB of
-   its corpus (the tool's default of 512 MiB halved, to keep this script
-   short), in steps of 32 chunks: the byte-aligned stream round-trips through
+12. soak: ``tools/sharded_soak.py`` at world size 1 over NCCL on 128 MiB of
+   its corpus (the tool's default of 512 MiB cut to a quarter, to keep this
+   script short), in steps of 32 chunks: the byte-aligned stream round-trips through
    zlib, the combined checksums equal zlib's, the packed splice equals the
    one-shot bytes; MB/s and bytes fetched.
 13. stages: ``tools/stage_timing.py`` for Default, fast and high at 64
@@ -128,8 +128,8 @@ Phases (each prints a line; any failure exits non-zero):
    must sum to the ``forward``'s within 1 % and their busy time to its own
    within 10 %; every kernel's launch counter must move.  Each run's rows
    are printed whole on a ``STAGE_ROWS`` line.
-14. fuzz: ``tools/fuzz.py`` at seed 0, 200 mutants at Default and fast
-   (10 inputs held to the CPU port's bytes) and 50 at high, rle and
+14. fuzz: ``tools/fuzz.py`` at seed 0, 100 mutants at Default and fast
+   (10 inputs held to the CPU port's bytes) and 25 at high, rle and
    huffman_only (5 held), each input round-tripping through ``zlib`` and the
    port's ``inflate``, every 8th multi-chunk one through ``compress_corpus``
    too; structures before and after; any failure fails the run; every
@@ -138,19 +138,22 @@ Phases (each prints a line; any failure exits non-zero):
    (CUDA bytes equal the CPU port's and round-trip) and at 512 and 1,024 KiB
    (round trips); every class's margin under the contract's ceiling.
 16. chunks: ``compress_corpus`` on a 64 MiB mix at its default batch (64
-   chunks up to 1 MiB, 64 MiB of payload above: 4 chunks of 16 MiB) at
-   ``chunk_size`` 65,536, 262,144, 524,288, 1,048,576, 2,097,152 and
-   4,161,280 with Default, 65,536, 1,048,576 and 2,064,128 with high,
-   4,194,304, 8,388,608 and 16,777,216 with fast and rle, 16,777,216 with
-   huffman_only, turbo and Default at 512 segments: round trip through
+   chunks up to 1 MiB, 64 MiB of payload above: 4 chunks of 16 MiB, 2 of
+   32 MiB) at ``chunk_size`` 65,536, 262,144, 524,288, 1,048,576,
+   2,097,152 and 4,161,280 with Default, 65,536, 1,048,576 and 2,064,128
+   with high, 4,194,304, 8,388,608, 16,777,216 and 33,554,432 with fast and
+   rle, 16,777,216 and 33,554,432 with huffman_only and turbo, 16,777,216
+   with Default at 512 segments and 33,554,432 at 1,024: round trip through
    zlib, CUDA bytes equal to the CPU port's on the first 2 MiB (above 1 MiB
-   the first chunk and an eighth of the next, above 4 MiB the first chunk),
-   warm MB/s (median and spread of three runs), the ratio beside the 64 KiB
-   run's (above 4 MiB the 4 MiB run's), the peak ``max_memory_allocated``
-   and the batches; every kernel's launch counter must move, the tiled path
-   of ``lr_measure`` (and not its block path) where the local windows pass
-   the block's (high from 1 MiB, Default from 2 MiB), neither at fast, rle,
-   huffman_only and turbo.  Default at 2 MiB on 2 MiB and 64 KiB of random
+   the first chunk and an eighth of the next, above 4 MiB the first chunk;
+   above 8 MiB none: the pins below hold those chunk sizes), above 1 MiB
+   the whole stream equal to the one at one chunk a batch, warm MB/s
+   (median and spread of three runs), the ratio beside the 64 KiB run's
+   (above 4 MiB the 4 MiB run's, at 32 MiB the 16 MiB run's), the peak
+   ``max_memory_allocated`` and the batches; every kernel's launch counter
+   must move, the tiled path of ``lr_measure`` (and not its block path)
+   where the local windows pass the block's (high from 1 MiB, Default from
+   2 MiB), neither at fast, rle, huffman_only and turbo.  Default at 2 MiB on 2 MiB and 64 KiB of random
    bytes (stored chunks) and fast at 4 MiB with ``packed=False`` on a stored
    chunk and text: CUDA bytes equal the CPU port's.  fast, rle and turbo at
    4,112 bytes on the first 4 MiB: CUDA bytes equal the CPU port's.
@@ -158,16 +161,18 @@ Phases (each prints a line; any failure exits non-zero):
    b"a" (one litlen symbol of frequency 2**20 to 2**22): CUDA bytes equal
    the CPU port's, round trips through zlib and ``inflate_device`` on the
    card, every kernel but ``lr_measure`` launched.  fast, rle and
-   huffman_only on pg11 repeated to one 16 MiB chunk (symbols of 2**20 and
-   more in a block, where the JAX package's stream is invalid): CUDA bytes
-   equal the CPU port's, round trips through zlib and ``inflate_device``.
-   The JAX package's pinned streams of one 16 MiB chunk
-   (``tests/data/torch_pins_16mib.json``, five presets): the card's whole
-   stream has the pinned length and sha256.  Each size at which the JAX
-   package fails, and the cap (16 MiB + 16), raises ``ValueError`` at the
-   entry, no kernel launched.  The kernels at the first batch of the 1 MiB
-   runs (all five at Default; the tiled path at high), of Default's 2 MiB,
-   4,161,280 B and 512-segment 16 MiB runs (32, 16 and 4 chunks; the tiled
+   huffman_only on pg11 repeated to one 16 MiB chunk, fast and huffman_only
+   to one of 32 MiB (symbols of 2**20 and more in a block, where the JAX
+   package's stream is invalid): CUDA bytes equal the CPU port's, round
+   trips through zlib and ``inflate_device``; huffman_only on 32 MiB of
+   b"a" (a leaf of 2**25) round-trips.  The JAX package's pinned streams of
+   one 16 and one 32 MiB chunk (``tests/data/torch_pins_{16,32}mib.json``,
+   five presets each): the card's whole stream has the pinned length and
+   sha256.  Each size at which the JAX package fails, and the cap (32 MiB +
+   16, 64 MiB), raises ``ValueError`` at the entry, no kernel launched.
+   The kernels at the first batch of the 1 MiB runs (all five at Default;
+   the tiled path at high), of Default's 2 MiB, 4,161,280 B, 512-segment
+   16 MiB and 1,024-segment 32 MiB runs (32, 16, 4 and 2 chunks; the tiled
    path held to its plain version on two rows), of the other runs above
    4 MiB, ``parse_scan`` at fast's 4,112 bytes and 4 MiB, and the four
    kernels of the one-byte MiBs' batch (package-merge at a leaf of 2**20,
@@ -876,7 +881,7 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
     }
 
 
-SOAK_MIB = 256  # the tool's default is 512 MiB: halved to keep this script short
+SOAK_MIB = 128  # the tool's default is 512 MiB: cut to keep this script short
 
 
 def soak_phase() -> None:
@@ -889,7 +894,7 @@ def soak_phase() -> None:
     t0 = time.perf_counter()
     s = soak(SOAK_MIB << 20, world=1, device="cuda")
     print(f"soak: world size 1 over NCCL, {SOAK_MIB} MiB (the tool's default 512 MiB cut to "
-          f"half), {s['steps']} steps of 32 chunks: {s['input_bytes']} -> {s['stream_bytes']} B "
+          f"a quarter), {s['steps']} steps of 32 chunks: {s['input_bytes']} -> {s['stream_bytes']} B "
           f"byte-aligned ({s['packed_bytes']} B packed), round-trips through zlib, checksums "
           f"== zlib's, packed == one-shot bytes; {s['mb_per_s']:.2f} MB/s ({s['seconds']:.2f} s "
           f"of steps and splices); fetched {s['fetched_bytes']} B; block types "
@@ -937,7 +942,7 @@ def stages_phase(cuda, mix: bytes, smi: str) -> dict:
     return counts
 
 
-FUZZ_RUNS = (("default,fast", 200, 10), ("high,rle,huffman_only", 50, 5))
+FUZZ_RUNS = (("default,fast", 100, 10), ("high,rle,huffman_only", 25, 5))
 
 
 def fuzz_phase(cuda) -> dict:
@@ -988,12 +993,24 @@ MIB = 1 << 20
 # the baseline of each preset's ratio and MB/s.  Above 1 MiB: Default at
 # 2 MiB and at 4,161,280 (the widest its long-range pass takes), high at
 # 2,064,128 (its widest), fast and rle at 4 MiB (the cap).
-# Above 4 MiB, to the cap: fast and rle at 8 and 16 MiB, huffman_only and
-# turbo at 16 MiB, and Default at 512 segments at 16 MiB (the widest
-# long-range pass the JAX package takes at the cap, lr_measure's tiled path).
+# Above 4 MiB: fast and rle at 8 and 16 MiB, huffman_only and turbo at
+# 16 MiB, and Default at 512 segments at 16 MiB (the widest long-range pass
+# the JAX package takes there); at the cap, 32 MiB, fast, rle, huffman_only,
+# turbo and Default at 1,024 segments (the widest long-range pass the JAX
+# package takes there).  Default's long-range pass is on lr_measure's tiled
+# path in both.
 WIDE_CHUNK_RUNS = (("fast", 8 * MIB), ("rle", 8 * MIB), ("fast", 16 * MIB), ("rle", 16 * MIB),
                    ("huffman_only", 16 * MIB), ("turbo", 16 * MIB),
-                   ("default_segs512", 16 * MIB))
+                   ("default_segs512", 16 * MIB), ("fast", 32 * MIB), ("rle", 32 * MIB),
+                   ("huffman_only", 32 * MIB), ("turbo", 32 * MIB),
+                   ("default_segs1024", 32 * MIB))
+# The 16 MiB run a 32 MiB run's ratio is printed beside, where its preset
+# is another one.
+RATIO_BASE_16M = {"default_segs1024": "default_segs512"}
+# The timed runs' CPU-port witnesses (their first chunk and more) reach this
+# chunk size; above it the card's bytes are held to the JAX pins of the
+# seeded input (``PINS_PATHS``) and, on text, to the CPU port's.
+HEAD_WITNESS_MAX = 8 * MIB
 CHUNK_RUNS = (("default", 65536), ("default", 262144), ("default", 524288),
               ("default", 1048576), ("high", 65536), ("high", 1048576),
               ("default", 2 * MIB), ("default", 4_161_280), ("high", 2_064_128),
@@ -1007,20 +1024,26 @@ SMALL_EMIT = 4112
 ONE_BYTE_PRESETS = ("huffman_only", "turbo")
 ONE_BYTE_SIZES = (MIB, 2 * MIB, 4 * MIB)
 ONE_BYTE_VALUES = (("zeros", b"\x00"), ("b'a'", b"a"))
-# pg11 repeated to one 16 MiB chunk, at the presets where one block gives a
-# litlen symbol 2**20 or more and the JAX package's stream is invalid.
-TEXT_16M_PRESETS = ("fast", "rle", "huffman_only")
-# The JAX package's streams of one 16 MiB chunk of ``utils.mix.spread``, by
-# length and sha256 (``tests/test_torch_pins_16mib.py`` writes them).
-PINS_PATH = os.path.join(HERE, "tests", "data", "torch_pins_16mib.json")
+# pg11 repeated to one chunk of 16 or 32 MiB, at presets where one block
+# gives litlen symbols 2**20 or more and the JAX package's stream is invalid.
+TEXT_RUNS = ((16 * MIB, ("fast", "rle", "huffman_only")), (32 * MIB, ("fast", "huffman_only")))
+# One byte value in one 32 MiB chunk at huffman_only: a litlen leaf of 2**25,
+# package-merge's widest (held by its round trip; no CPU witness).
+ONE_BYTE_32M = ("huffman_only", b"a")
+# The JAX package's streams of one chunk of ``utils.mix.spread`` of 16 and
+# 32 MiB, by length and sha256 (``tests/test_torch_pins_{16,32}mib.py`` write
+# them).
+PINS_PATHS = tuple(os.path.join(HERE, "tests", "data", f"torch_pins_{m}mib.json")
+                   for m in (16, 32))
 # (preset, chunk size) at which the JAX package's compress_corpus fails, and
-# the cap (16 MiB + 16 at fast, which the JAX package takes; 32 MiB at
-# huffman_only): each must raise ValueError at the entry.
+# the cap (32 MiB + 16 at fast and 64 MiB at huffman_only, which the JAX
+# package takes): each must raise ValueError at the entry.
 REFUSED = (tuple((p, E) for p in ("default", "high", "ForceFixed", "ForceStored")
                  for E in (4112, 8208))
            + (("default", 4_161_280 + 256), ("default", 4 * MIB), ("high", 2 * MIB),
               ("default", 4 * MIB + 16), ("default", 8 * MIB), ("default_segs256", 16 * MIB),
-              ("fast", 16 * MIB + 16), ("huffman_only", 32 * MIB)))
+              ("default_segs512", 32 * MIB), ("fast", 32 * MIB + 16),
+              ("huffman_only", 64 * MIB)))
 # Rows of a batch above 1 MiB at which lr_measure is held to its plain
 # version, which takes seconds a row there.
 LR_PLAIN_ROWS = 2
@@ -1031,7 +1054,7 @@ LR_PLAIN_ROWS = 2
 # host: high 28, Default 6-10, fast 3-5, the others under 1).
 WITNESS_PROCS = 4
 WITNESS_THREADS = 2
-WITNESS_COST = {"high": 28.0, "default": 8.0, "default_segs512": 6.4, "fast": 4.6}
+WITNESS_COST = {"high": 28.0, "default": 8.0, "fast": 4.6}
 
 
 def _preset(dt, name: str):
@@ -1051,8 +1074,8 @@ def _preset(dt, name: str):
 def chunk_source(kind: str) -> bytes:
     """An input of the chunks phase, rebuilt from the checkout and seeds
     (the witness processes build their own): "mix" (64 MiB), "rand" (4 MiB
-    of random bytes), "text16" (pg11 repeated to 16 MiB), "spread16" (the
-    pinned 16 MiB input)."""
+    of random bytes), "text16" and "text32" (pg11 repeated to 16 or 32 MiB),
+    "spread16" and "spread32" (the pinned inputs of 16 and 32 MiB)."""
     import numpy as np
 
     from deflate_rs_tpu_torch.utils.mix import build_mix, pg11, spread
@@ -1061,11 +1084,11 @@ def chunk_source(kind: str) -> bytes:
         return build_mix(CHUNKS_MIX_BYTES, pg11())
     if kind == "rand":
         return np.random.default_rng(12).integers(0, 256, 4 * MIB, dtype=np.uint8).tobytes()
-    if kind == "text16":
-        text = pg11()
-        return (text * (16 * MIB // len(text) + 1))[: 16 * MIB]
-    if kind == "spread16":
-        return spread(16 * MIB)
+    if kind in ("text16", "text32"):
+        n, text = int(kind[4:]) * MIB, pg11()
+        return (text * (n // len(text) + 1))[:n]
+    if kind in ("spread16", "spread32"):
+        return spread(int(kind[6:]) * MIB)
     raise ValueError(kind)
 
 
@@ -1077,9 +1100,12 @@ def chunk_input(pieces) -> bytes:
 
 
 def cpu_witness(task) -> tuple:
-    """(sha256, length, seconds) of the CPU port's ``compress_corpus``
-    stream of one witness task, in a spawned process."""
+    """(sha256, length, seconds, peak RSS of the process in GB so far) of
+    the CPU port's ``compress_corpus`` stream of one witness task, in a
+    spawned process."""
     pieces, preset, E, kw = task
+    import resource
+
     import torch
 
     torch.set_num_threads(WITNESS_THREADS)
@@ -1090,7 +1116,8 @@ def cpu_witness(task) -> tuple:
     t0 = time.perf_counter()
     out = corpus.compress_corpus(data, _preset(dt, preset), chunk_size=E, device="cpu",
                                  **kw).deflate
-    return hashlib.sha256(out).hexdigest(), len(out), time.perf_counter() - t0
+    return (hashlib.sha256(out).hexdigest(), len(out), time.perf_counter() - t0,
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6)
 
 
 class Witnesses:
@@ -1122,11 +1149,12 @@ class Witnesses:
     def check(self) -> None:
         for label, key, sha, n in self.pending:
             what, res = self.jobs[key]
-            got_sha, got_n, secs = res.get(timeout=1200)
+            got_sha, got_n, secs, rss = res.get(timeout=1200)
             if (got_sha, got_n) != (sha, n):
                 raise SystemExit(f"{label}: CUDA bytes differ from the CPU port's on {what}")
             print(f"{label}: CUDA bytes == CPU port bytes on {what} ({n} B; the CPU port "
-                  f"took {secs:.1f} s in a witness process)", flush=True)
+                  f"took {secs:.1f} s in a witness process, whose peak RSS is now "
+                  f"{rss:.1f} GB)", flush=True)
 
     def close(self) -> None:
         self.pool.terminate()
@@ -1141,14 +1169,16 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
     launch counters set to 0 just before each and read after; every kernel
     of the path must move: ``lr_measure``'s tiled path and not its block
     path where the local windows pass ``MAX_WINDOW_WORDS`` (high from
-    679,680 B, Default from 1,392,640 B, Default at 512 segments at 16 MiB),
-    neither without the long-range pass), the stream round-trips through
-    zlib, CUDA bytes equal the CPU port's on the first 2 MiB (above 1 MiB
-    its first chunk and an eighth, above 4 MiB its first chunk; and the
-    whole stream equals a CUDA run at one chunk a batch, whose chunks all
-    sit in the slot the CPU port holds), the peak ``max_memory_allocated``
-    of the four runs, the batches and the ratio beside the 64 KiB run's (the
-    4 MiB run's above 4 MiB).  Default at 2 MiB on 2 MiB and 64 KiB of
+    679,680 B, Default from 1,392,640 B, Default at 512 segments at 16 MiB
+    and at 1,024 at 32 MiB), neither without the long-range pass), the
+    stream round-trips through zlib, CUDA bytes equal the CPU port's on the
+    first 2 MiB (above 1 MiB its first chunk and an eighth, above 4 MiB its
+    first chunk, none above ``HEAD_WITNESS_MAX``; above 1 MiB the whole
+    stream equals a CUDA run at one chunk a batch, whose chunks all sit in
+    the slot the CPU port or a JAX pin holds), the peak
+    ``max_memory_allocated`` of the four runs, the batches and the ratio
+    beside the 64 KiB run's (the 4 MiB run's above 4 MiB, the 16 MiB run's
+    at 32 MiB).  Default at 2 MiB on 2 MiB and 64 KiB of
     random bytes (stored chunks, range totals of 2**21), and fast at 4 MiB
     with ``packed=False`` on a stored chunk of 4 MiB and text: CUDA bytes
     equal the CPU port's.
@@ -1158,22 +1188,26 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
     before it, every kernel but ``lr_measure`` must move): CUDA bytes equal
     the CPU port's, the stream round-trips through zlib and
     ``inflate_device`` on the card.  fast, rle and huffman_only on pg11
-    repeated to one 16 MiB chunk (a block gives litlen symbols 2**20 and
-    more: the JAX package's stream is invalid there): CUDA bytes equal the
-    CPU port's, round trips through zlib and ``inflate_device``.  Every
-    pinned JAX stream of a 16 MiB chunk (``PINS_PATH``): the card's whole
-    stream has its length and sha256.  The sizes at which the JAX package
+    repeated to one 16 MiB chunk, fast and huffman_only to one of 32 MiB
+    (``TEXT_RUNS``; a block gives litlen symbols 2**20 and more: the JAX
+    package's stream is invalid there): CUDA bytes equal the CPU port's,
+    round trips through zlib and ``inflate_device``.  huffman_only on 32 MiB
+    of b"a" (a leaf of 2**25): round trips.  Every pinned JAX stream of a
+    16 and a 32 MiB chunk (``PINS_PATHS``): the card's whole stream has its
+    length and sha256.  The sizes at which the JAX package
     fails, and the cap, raise ``ValueError`` at the entry, with no kernel
     launched.  Then the kernels at the first batch of the 1 MiB runs
     (Default's, and high's for the tiled path), of Default's 2 MiB,
-    4,161,280 B and 512-segment 16 MiB runs (32, 16 and 4 chunks;
+    4,161,280 B, 512-segment 16 MiB and 1,024-segment 32 MiB runs (32, 16,
+    4 and 2 chunks;
     ``lr_measure`` there is the tiled path, held to its plain version on
     ``LR_PLAIN_ROWS`` rows), of fast's at 4,112 bytes and at 4 MiB
     (``parse_scan``: 64 full windows a chunk), of the other runs above
     4 MiB (all four kernels of their path) and of the two one-byte MiBs in
     one batch (package-merge at a leaf of 2**20, at both presets), against
     their plain versions, exact, with graph-replay time and bound
-    (``torch.bincount`` timed beside ``quarter_hist``).  The CPU port's
+    (``torch.bincount`` timed beside ``quarter_hist`` at the Default runs
+    and at 32 MiB).  The CPU port's
     witnesses run in ``WITNESS_PROCS`` spawned processes from the end of the
     timed runs on, beside the card's checks, and are held at the end.
     Returns (launches by run, kernel rows by key, the runs above 4 MiB by
@@ -1188,7 +1222,7 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
     torch.cuda.empty_cache()
     mix = chunk_source("mix")
     mb = len(mix) / 1e6
-    launches, base, heads, wide_runs = {}, {}, [], {}
+    launches, base, heads, wide_runs, ratios = {}, {}, [], {}, {}
     for preset, E in CHUNK_RUNS:
         o = _preset(dt, preset)
         label = f"chunks: {preset} chunk_size={E}"
@@ -1210,8 +1244,8 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
             raise SystemExit(f"{label}: the stream does not round-trip")
         # The CPU port's witness (in the witness processes below): above
         # 1 MiB its first chunk and an eighth of the next, above 4 MiB its
-        # first chunk.
-        if E != 65536:
+        # first chunk; none above HEAD_WITNESS_MAX.
+        if E != 65536 and E <= HEAD_WITNESS_MAX:
             n_head = E if E > 4 * MIB else E + E // 8 if E > MIB else 2 * MIB
             heads.append((label, preset, E, n_head, corpus.compress_corpus(
                 mix[:n_head], o, chunk_size=E, device="cuda").deflate))
@@ -1232,13 +1266,17 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
         else:
             off_path = ("lr_measure", TILED)
         check_launches(label, counts, off_path=off_path)
-        ratio = len(first.deflate) / len(mix)
+        ratio = ratios[preset, E] = len(first.deflate) / len(mix)
         if E in (65536, 4 * MIB):
             base[preset] = (E, ratio)
+        if E == 32 * MIB:
+            base[preset] = (16 * MIB, ratios[RATIO_BASE_16M.get(preset, preset), 16 * MIB])
         launches[preset, E] = counts
         if (preset, E) in WIDE_CHUNK_RUNS:
             wide_runs[preset, E] = {"mb_per_s": sorted(rates), "ratio": ratio, "peak_gib": peak,
                                     "batches": first.fetched["batches"]}
+            if E == 32 * MIB:
+                wide_runs[preset, E]["ratio_16mib"] = base[preset][1]
         base_txt = (f" ({base[preset][0]} B chunks: {base[preset][1]:.5f})"
                     if preset in base and base[preset][0] != E else "")
         print(f"{label}: {len(mix) >> 20} MiB mix round-trips at ratio {ratio:.5f}{base_txt}; "
@@ -1249,12 +1287,12 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
               + f"; launches of the last timed run {counts}", flush=True)
     witnesses = Witnesses()
     try:
-        # The timed runs' heads and the text chunks of 16 MiB, the costliest
-        # first: the witness processes take them in order.
+        # The timed runs' heads and the text chunks, the costliest first:
+        # the witness processes take them in order.
         early = ([(label, (("mix", 0, n_head),), preset, E) for label, preset, E, n_head, _
                   in heads]
-                 + [(("text16", p), (("text16", 0, 16 * MIB),), p, 16 * MIB)
-                    for p in TEXT_16M_PRESETS])
+                 + [((f"text{E >> 20}", p), ((f"text{E >> 20}", 0, E),), p, E)
+                    for E, presets in TEXT_RUNS for p in presets])
         for key, pieces, preset, E in sorted(early, key=lambda w: -WITNESS_COST.get(
                 w[2], 0.8) * sum(b - a for _, a, b in w[1])):
             witnesses.submit(key, pieces, preset, E)
@@ -1264,9 +1302,11 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
         launches.update(launches_rest)
         t_wait = time.perf_counter()
         witnesses.check()
+        host_gb = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") / 1e9
         print(f"chunks: {len(witnesses.pending)} CPU-port witnesses held ({WITNESS_PROCS} "
-              f"processes of {WITNESS_THREADS} threads; {time.perf_counter() - t_wait:.1f} s "
-              "waited for them after the card's checks)", flush=True)
+              f"processes of {WITNESS_THREADS} threads on a host of {host_gb:.1f} GB; "
+              f"{time.perf_counter() - t_wait:.1f} s waited for them after the card's checks)",
+              flush=True)
     finally:
         witnesses.close()
     torch.cuda.empty_cache()
@@ -1288,27 +1328,28 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
 
     dev = torch.device("cuda", 0)
     launches = {}
-    pieces = (("text16", 0, 16 * MIB),)
-    text16 = chunk_input(pieces)
-    for preset in TEXT_16M_PRESETS:
-        o = _preset(dt, preset)
-        label = f"chunks: {preset} chunk_size={16 * MIB} on pg11 repeated to 16 MiB"
-        cuda.reset_launches()
-        got = corpus.compress_corpus(text16, o, chunk_size=16 * MIB, device="cuda").deflate
-        torch.cuda.synchronize()
-        counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
-        witnesses.expect(("text16", preset), label, got)
-        if zlib.decompress(got, -15) != text16:
-            raise SystemExit(f"{label}: the stream does not round-trip through zlib")
-        ti = time.perf_counter()
-        if inflate_device(got, len(text16), device="cuda") != text16:
-            raise SystemExit(f"{label}: inflate_device does not give the input back")
-        ti = time.perf_counter() - ti
-        check_launches(label, counts, off_path=("lr_measure", TILED))
-        launches[preset, 16 * MIB, "text"] = counts
-        print(f"{label} (a block of litlen symbols of 2**20 and more, where the JAX package's "
-              f"stream is invalid): {len(got)} B, round-trips through zlib and inflate_device on "
-              f"the card ({ti:.1f} s); launches {counts}", flush=True)
+    for E, presets in TEXT_RUNS:
+        kind = f"text{E >> 20}"
+        text = chunk_source(kind)
+        for preset in presets:
+            o = _preset(dt, preset)
+            label = f"chunks: {preset} chunk_size={E} on pg11 repeated to {E >> 20} MiB"
+            cuda.reset_launches()
+            got = corpus.compress_corpus(text, o, chunk_size=E, device="cuda").deflate
+            torch.cuda.synchronize()
+            counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+            witnesses.expect((kind, preset), label, got)
+            if zlib.decompress(got, -15) != text:
+                raise SystemExit(f"{label}: the stream does not round-trip through zlib")
+            ti = time.perf_counter()
+            if inflate_device(got, len(text), device="cuda") != text:
+                raise SystemExit(f"{label}: inflate_device does not give the input back")
+            ti = time.perf_counter() - ti
+            check_launches(label, counts, off_path=("lr_measure", TILED))
+            launches[preset, E, "text"] = counts
+            print(f"{label} (a block of litlen symbols of 2**20 and more, where the JAX "
+                  f"package's stream is invalid): {len(got)} B, round-trips through zlib and "
+                  f"inflate_device on the card ({ti:.1f} s); launches {counts}", flush=True)
     rand = chunk_source("rand")
     pieces = (("rand", 0, 2 * MIB + 65536),)
     data, o = chunk_input(pieces), _preset(dt, "default")
@@ -1367,23 +1408,41 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
                 launches[preset, size, what] = counts
                 print(f"{label}: {len(got)} B, round-trips through zlib and inflate_device on "
                       f"the card; launches {counts}", flush=True)
-    with open(PINS_PATH) as f:
-        pins = json.load(f)
-    spread16 = chunk_source("spread16")
-    if hashlib.sha256(spread16).hexdigest() != pins["input_sha256"]:
-        raise SystemExit("chunks: the pinned 16 MiB input is not the one the pins were made of")
-    for preset, pin in sorted(pins["streams"].items()):
-        o = _preset(dt, preset)
-        label = f"chunks: {preset} chunk_size={pins['chunk_size']} on the pinned 16 MiB input"
-        got = corpus.compress_corpus(spread16, o, chunk_size=pins["chunk_size"],
-                                     device="cuda").deflate
-        if (len(got), hashlib.sha256(got).hexdigest()) != (pin["bytes"], pin["sha256"]):
-            raise SystemExit(f"{label}: {len(got)} B, not the JAX package's pinned stream of "
-                             f"{pin['bytes']} B")
-        if zlib.decompress(got, -15) != spread16:
-            raise SystemExit(f"{label}: the stream does not round-trip through zlib")
-        print(f"{label}: {len(got)} B, length and sha256 == the JAX package's pin, round-trips",
-              flush=True)
+    preset, byte = ONE_BYTE_32M
+    data = byte * (32 * MIB)
+    label = f"chunks: {preset} chunk_size={32 * MIB} on 32 MiB of {byte!r}"
+    cuda.reset_launches()
+    got = corpus.compress_corpus(data, _preset(dt, preset), chunk_size=32 * MIB,
+                                 device="cuda").deflate
+    torch.cuda.synchronize()
+    counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
+    if zlib.decompress(got, -15) != data:
+        raise SystemExit(f"{label}: the stream does not round-trip through zlib")
+    if inflate_device(got, len(data), device="cuda") != data:
+        raise SystemExit(f"{label}: inflate_device does not give the input back")
+    check_launches(label, counts, off_path=("lr_measure", TILED))
+    launches[preset, 32 * MIB, "one_byte"] = counts
+    print(f"{label} (a litlen leaf of 2**25): {len(got)} B, round-trips through zlib and "
+          f"inflate_device on the card; launches {counts}", flush=True)
+    for path in PINS_PATHS:
+        with open(path) as f:
+            pins = json.load(f)
+        E = pins["chunk_size"]
+        src = chunk_source(f"spread{E >> 20}")
+        if hashlib.sha256(src).hexdigest() != pins["input_sha256"]:
+            raise SystemExit(f"chunks: the pinned {E >> 20} MiB input is not the one the pins "
+                             "were made of")
+        for preset, pin in sorted(pins["streams"].items()):
+            o = _preset(dt, preset)
+            label = f"chunks: {preset} chunk_size={E} on the pinned {E >> 20} MiB input"
+            got = corpus.compress_corpus(src, o, chunk_size=E, device="cuda").deflate
+            if (len(got), hashlib.sha256(got).hexdigest()) != (pin["bytes"], pin["sha256"]):
+                raise SystemExit(f"{label}: {len(got)} B, not the JAX package's pinned stream "
+                                 f"of {pin['bytes']} B")
+            if zlib.decompress(got, -15) != src:
+                raise SystemExit(f"{label}: the stream does not round-trip through zlib")
+            print(f"{label}: {len(got)} B, length and sha256 == the JAX package's pin, "
+                  "round-trips", flush=True)
     for preset, E in REFUSED:
         cuda.reset_launches()
         try:
@@ -1420,8 +1479,9 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
             + [("mib2", "default", 2 * MIB, rec, name) for rec, name in every]
             + [("mib4", "default", 4_161_280, rec, name) for rec, name in every]
             + [("mib16", "default_segs512", 16 * MIB, rec, name) for rec, name in every]
+            + [("mib32", "default_segs1024", 32 * MIB, rec, name) for rec, name in every]
             + [(f"{p}_{E >> 20}m", p, E, rec, name) for p, E in WIDE_CHUNK_RUNS
-               if p != "default_segs512" for rec, name in every[1:]]
+               if not p.startswith("default_segs") for rec, name in every[1:]]
             + [("granule", "fast", SMALL_EMIT, "parse_scan", "parse_scan"),
                ("fast4m", "fast", 4 * MIB, "parse_scan", "parse_scan")]
             + [("one_byte", "huffman_only", MIB, rec, name) for rec, name in every[1:]]
@@ -1474,7 +1534,8 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
             args[2], args[1].shape[1]) > lr_kernel.MAX_WINDOW_WORDS else "")
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         lib_ms = None
-        if name == "quarter_hist" and row_key in ("mib", "mib2", "mib4", "mib16"):
+        if name == "quarter_hist" and (row_key in ("mib", "mib2", "mib4", "mib16")
+                                       or E == 32 * MIB):
             lib_ms, same = bincount_yardstick(args, got)
             if not same:
                 raise SystemExit("chunks: the bincount yardstick computes another function")
@@ -2084,7 +2145,9 @@ def main() -> int:
     high_mib = chunk_launches["high", MIB]
     mib2, mib4 = chunk_launches["default", 2 * MIB], chunk_launches["default", 4_161_280]
     mib16 = chunk_launches["default_segs512", 16 * MIB]
-    wide_keys = [(p, E, f"{p}_{E >> 20}m") for p, E in WIDE_CHUNK_RUNS if p != "default_segs512"]
+    mib32 = chunk_launches["default_segs1024", 32 * MIB]
+    wide_keys = [(p, E, f"{p}_{E >> 20}m") for p, E in WIDE_CHUNK_RUNS
+                 if not p.startswith("default_segs")]
     chunk_key = {"lr_measure": "lr_measure", "parse_scan": "parse_scan",
                  "package_merge": "lengths_by_rank", "token_fields": "token_fields",
                  "quarter_hist": "quarter_hist"}
@@ -2131,12 +2194,14 @@ def main() -> int:
             "launches_chunks_mib2": mib2[name],
             "launches_chunks_mib4": mib4[name],
             "launches_chunks_mib16": mib16[name],
+            "launches_chunks_mib32": mib32[name],
             "launches_chunks_wide": sum(chunk_launches[p, E][name] for p, E, _ in wide_keys),
             "mib_batch": corpus.BATCH_SIZE,
             **{f"mib_{k}": v for k, v in chunk_rows["mib", chunk_key[name]].items()},
         })
         if name != "lr_measure":  # above 1 MiB Default's local pass is on the tiled path
-            for row_key, E in (("mib2", 2 * MIB), ("mib4", 4_161_280), ("mib16", 16 * MIB)):
+            for row_key, E in (("mib2", 2 * MIB), ("mib4", 4_161_280), ("mib16", 16 * MIB),
+                               ("mib32", 32 * MIB)):
                 rows[-1][f"{row_key}_batch"] = corpus.default_batch_size(E)
                 rows[-1].update({f"{row_key}_{k}": v
                                  for k, v in chunk_rows[row_key, chunk_key[name]].items()})
@@ -2159,7 +2224,7 @@ def main() -> int:
     global_row.update({f"high_mib_{k}": v for k, v in chunk_rows["high_mib", "lr_measure"].items()})
     global_row["launches_chunks_high_2m"] = chunk_launches["high", 2_064_128][TILED]
     for row_key, launched, E in (("mib2", mib2, 2 * MIB), ("mib4", mib4, 4_161_280),
-                                 ("mib16", mib16, 16 * MIB)):
+                                 ("mib16", mib16, 16 * MIB), ("mib32", mib32, 32 * MIB)):
         global_row[f"launches_chunks_{row_key}"] = launched[TILED]
         global_row[f"{row_key}_batch"] = corpus.default_batch_size(E)
         global_row.update({f"{row_key}_{k}": v for k, v in chunk_rows[row_key, "lr_measure"].items()})
@@ -2200,10 +2265,12 @@ def main() -> int:
           "tiled path, and launches_chunks_high_2m of the timed high run at 2,064,128 B; "
           "launches_chunks_mib16 of the timed Default run at 512 segments and 16 MiB chunks, "
           "mib16_* at its first batch (4 chunks; lr_measure's tiled path in the "
-          "lr_measure_global row), launches_chunks_wide the sum over the timed fast and rle "
-          "runs at 8 and 16 MiB and huffman_only and turbo at 16 MiB, chunks_wide their first "
-          "batches' ms, plain_ms and bound_ms by run; the CHUNKS_WIDE line holds those runs' "
-          "MB/s, ratio, peak GiB and batches")
+          "lr_measure_global row), launches_chunks_mib32 and mib32_* the same at 1,024 "
+          "segments and 32 MiB chunks (2 chunks); launches_chunks_wide the sum over the timed "
+          "fast and rle runs at 8, 16 and 32 MiB and huffman_only and turbo at 16 and 32 MiB, "
+          "chunks_wide their first batches' ms, plain_ms and bound_ms by run (quarter_hist's "
+          "library_ms the bincount at 32 MiB); the CHUNKS_WIDE line holds those runs' MB/s, "
+          "ratio, peak GiB and batches, and the 32 MiB runs' ratio at 16 MiB")
     print("CHUNKS_WIDE " + json.dumps({f"{p} {E}": v for (p, E), v in wide_runs.items()}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

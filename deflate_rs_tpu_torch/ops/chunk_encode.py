@@ -39,7 +39,7 @@ from .matching import (chain_extend, find_matches, find_matches_hash, find_rle_m
 from .package_merge import package_merge_rows
 from .parse import build_jumps
 from .parse_scan import parse_scan
-from .proxy import F32_EXACT_BITS, load_switch_table, proxy_bits, row_offsets
+from .proxy import F32_EXACT_BITS, SWITCH_MARGIN, load_switch_table, proxy_bits, row_offsets
 from .symbolmap import dist_code, length_code
 
 HALO = C.WINDOW_SIZE  # history bytes preceding the emit region
@@ -132,8 +132,11 @@ class ChunkEncoder(nn.Module):
         def buf(name, arr, dtype=np.int64):
             self.register_buffer(name, torch.as_tensor(np.asarray(arr, dtype)), persistent=False)
 
-        buf("proxy_table", load_switch_table(), np.int8)
-        buf("proxy_offsets", row_offsets())
+        # The switch offsets a range can reach: its total is at most its
+        # emit_size tokens and EOB.
+        tot_max = emit_size + 1 + SWITCH_MARGIN
+        buf("proxy_table", load_switch_table(tot_max), np.int8)
+        buf("proxy_offsets", row_offsets(tot_max))
         buf("rid_t_c", sc.rid_t.T)                         # [C, t]
         buf("comp_ranges", sc.comp_ranges)                 # [C, R]
         buf("range_lo", [r[0] for r in sc.ranges])         # [R]

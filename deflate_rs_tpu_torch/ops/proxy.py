@@ -8,7 +8,7 @@ to round it the right way, so the exact integer count of
 :func:`proxy_code_lengths` agrees.  Near ``tot == f << k`` it need not: the
 exact count steps from ``k`` to ``k + 1`` between ``tot == f << k`` and
 ``tot == (f << k) + 1``, and the JAX form steps at ``tot == (f << k) + c``,
-where the switch offset ``c`` of the pair (k, f) lies between -31 and 40:
+where the switch offset ``c`` of the pair (k, f) lies between -62 and 81:
 
 - ``c <= 0``: the JAX form gives ``k + 1`` from ``-c`` below ``f << k``
   (``c == 0``: at the exact ratio alone, for some pairs at any total);
@@ -18,18 +18,23 @@ How far the step moves grows with the total, float32's spacing at
 ``log2(tot)`` being fixed against a gap ``log2(1 + d / tot)`` that shrinks:
 no pair has ``c`` outside 0..1 below a total of 647,681, none outside
 -1..2 up to 1,048,641, -5..8 up to 4,194,369 (4 MiB chunks), -11..16 up to
-8,388,673 and -31..40 up to ``TOT_MAX``.  Past 2**24 float32 rounds the
-total itself (to an even integer), which moves the step but keeps it a step.
+8,388,673, -31..40 up to 16,777,281 (16 MiB chunks) and -62..81 up to
+``TOT_MAX``.  Past 2**24 float32 rounds the total itself (to an even
+integer), and at k = 1 the frequency too, which moves the step but keeps it
+a step (in the ``[R, 30]`` form at every total of the sweep below, at every
+pair).
 
 The offsets are held in one committed table, ``data/proxy_switch.i8.xz``:
 one entry per (k, f) with ``1 <= k <= 14`` and ``f << k <= TOT_MAX``, rows
 of increasing k, f from 1, each ``c`` one int8, the whole compressed with
-lzma (16,776,255 entries in about 1 MB; unpacked once a process).  The JAX
-form is a step of ``tot`` at each pair; the table was generated from the
-JAX expression itself, in the encoder's jit forms of a range histogram
-(``[R, 30]`` at every total from ``f << k`` - 64 to + 64, ``[R, 286]`` on
-both sides of each step; up to 4,194,369 both forms at every total within
-10 of ``f << k``); ``tests/test_torch_proxy.py`` and
+lzma (33,552,511 entries in about 1.5 MB; unpacked once a process; an
+encoder holds the pairs its chunk size can reach).  The
+JAX form is a step of ``tot`` at each pair; the table was generated from
+the JAX expression itself, in the encoder's jit forms of a range histogram
+(``[R, 30]`` at every total from ``f << k`` - 64 to + 64, past 16,777,281
+from - 128 to + 128, ``[R, 286]`` on both sides of each step; up to
+4,194,369 both forms at every total within 10 of ``f << k``);
+``tests/test_torch_proxy.py`` and
 ``tests/test_torch_proxy_wide_*.py`` hold it to both forms (run the first
 as a script to rewrite it).  The lookup is integer work, so every device
 gives the same lengths.
@@ -48,33 +53,39 @@ from ..constants import MAX_CODE_LENGTH
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 TABLE_PATH = os.path.join(DATA_DIR, "proxy_switch.i8.xz")
-# Largest symbol total a range histogram reaches: the 16,777,216 tokens of
+# Totals past a range's largest one whose pairs a table must hold: wider than
+# any switch offset (at most 62 below ``f << k``), so that a total's nearest
+# ``f << k`` above it is an entry.
+SWITCH_MARGIN = 128
+# Largest symbol total a range histogram reaches: the 33,554,432 tokens of
 # the widest chunk the corpus engine takes (``parallel/corpus.py``:
-# ``MAX_CHUNK_SIZE``), plus EOB, with a margin wider than any switch offset,
-# so a total's nearest ``f << k`` above it is an entry of the table.
-TOT_MAX = (1 << 24) + 65
+# ``MAX_CHUNK_SIZE``), plus EOB; the table covers it with the margin.
+TOT_MAX = (1 << 25) + 1 + SWITCH_MARGIN
 K_MAX = MAX_CODE_LENGTH - 1  # at k = 15 the clip hides any rounding
 # Token bits below this are exact in float32 whatever the order of the sum.
 F32_EXACT_BITS = 1 << 24
 
 
-def table_rows() -> list:
-    """(k, number of f values) per row of the table."""
-    return [(k, TOT_MAX >> k) for k in range(1, K_MAX + 1)]
+def table_rows(tot_max: int = TOT_MAX) -> list:
+    """(k, number of f values) per row of the table of the pairs with
+    ``f << k <= tot_max``."""
+    return [(k, tot_max >> k) for k in range(1, K_MAX + 1)]
 
 
-def table_size() -> int:
-    """Entries of the table."""
-    return sum(c for _, c in table_rows())
+def table_size(tot_max: int = TOT_MAX) -> int:
+    """Entries of that table."""
+    return sum(c for _, c in table_rows(tot_max))
 
 
-def row_offsets() -> np.ndarray:
-    """int64[MAX_CODE_LENGTH + 1]: flat index of (k, f = 1) at entry k."""
+def row_offsets(tot_max: int = TOT_MAX) -> np.ndarray:
+    """int64[MAX_CODE_LENGTH + 1]: flat index of (k, f = 1) in that table at
+    entry k, its size at entry ``K_MAX + 1``."""
     off = np.zeros(MAX_CODE_LENGTH + 1, np.int64)
     pos = 0
-    for k, count in table_rows():
+    for k, count in table_rows(tot_max):
         off[k] = pos
         pos += count
+    off[K_MAX + 1] = pos
     return off
 
 
@@ -95,16 +106,23 @@ def _table_bytes() -> bytes:
     return raw
 
 
-def load_switch_table() -> np.ndarray:
-    """int8[table_size()]: the switch offset ``c`` of every (k, f) (the
-    operand ``table`` of :func:`proxy_code_lengths`)."""
-    return np.frombuffer(_table_bytes(), np.int8).copy()
+def load_switch_table(tot_max: int = TOT_MAX) -> np.ndarray:
+    """int8[table_size(tot_max)]: the switch offset ``c`` of every (k, f)
+    with ``f << k <= tot_max`` (the operand ``table`` of
+    :func:`proxy_code_lengths`, beside ``row_offsets(tot_max)``).  An encoder
+    whose range totals stay at or below T needs the pairs up to
+    ``T + SWITCH_MARGIN`` only."""
+    if tot_max > TOT_MAX:
+        raise ValueError(f"the switch table covers totals up to {TOT_MAX}, not {tot_max}")
+    whole = np.frombuffer(_table_bytes(), np.int8)
+    off = row_offsets()
+    return np.concatenate([whole[off[k] : off[k] + count] for k, count in table_rows(tot_max)])
 
 
 def _switch_at(f, k, table, offsets):
     """(the switch offset of (k, f), whether (k, f) is an entry)."""
     kc = k.clamp(1, K_MAX)
-    entry = (k >= 1) & (k <= K_MAX) & ((f << kc) <= TOT_MAX)
+    entry = (k >= 1) & (k <= K_MAX) & (f <= offsets[kc + 1] - offsets[kc])
     flat = (offsets[kc] + f - 1).clamp(0, table.shape[0] - 1)
     return table[flat].long(), entry
 
@@ -143,7 +161,7 @@ def xla_f32_row_sum(x: torch.Tensor) -> torch.Tensor:
     of the first whole multiple of 8 in order, the lanes then added as a
     halving tree (lane j + lane j + 4, then + 2, then + 1), and the values
     past the last multiple of 8 added in order after it (measured against
-    the JAX form at totals up to 2**24 + 1, where the order shows; below
+    the JAX form at totals up to 2**25 + 1, where the order shows; below
     about 2**22 the sums in order agree with it).  Every addition rounds to
     float32, as XLA's do."""
     A = x.shape[-1]

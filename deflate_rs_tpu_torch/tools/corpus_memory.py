@@ -4,7 +4,7 @@ For each preset, chunk size and batch size given, runs ``compress_corpus``
 over the first ``batch * chunk`` bytes of ``chip_smoke.py``'s mix (at least
 one full batch; a batch size of 0 is the engine's default at that chunk
 size, ``corpus.default_batch_size``: 64 chunks, or 64 MiB of payload above
-1 MiB, 4 chunks of 16 MiB) and prints one JSON line: the peak of
+1 MiB, 2 chunks of 32 MiB) and prints one JSON line: the peak of
 ``torch.cuda.max_memory_allocated()`` during a run (GiB), the card's total
 memory, warm MB/s of two runs and the compressed ratio.  The configurations
 run in the order given, so list the largest last: a batch that does not fit

@@ -194,8 +194,9 @@ M_SWEEP = (0, 1, 2, 3, 31, 32, 33, 64, 65, 255, 256, 286)
 
 
 FREQ_2P20_CASE = "freq_2p20_286"
-# The cases with a leaf of 2**21 to 2**24 (blocks of 2 to 16 MiB chunks).
-WIDE_LEAF_CASES = ("freq_2p21_286", "freq_2p22_286", "freq_2p23_286", "freq_2p24_286")
+# The cases with a leaf of 2**21 to 2**25 (blocks of 2 to 32 MiB chunks).
+WIDE_LEAF_CASES = ("freq_2p21_286", "freq_2p22_286", "freq_2p23_286", "freq_2p24_286",
+                   "freq_2p25_286")
 
 
 def package_merge_cases() -> list:
@@ -251,6 +252,15 @@ def package_merge_cases() -> list:
     sixteen[0, 0] = sixteen[1, 97] = 1 << 24
     sixteen[:, 256] = 1
     cases.append((WIDE_LEAF_CASES[3], sixteen, 15))
+    # A leaf of 2**25 (a 32 MiB block of one byte value) on symbols 0 and 97,
+    # rows of ``package_merge.MAX_ROW_SUM``, and a row whose leaves halve from
+    # 2**24 down to 1, summing with EOB to 2**25 (a 32 MiB chunk's block).
+    wide = np.zeros((3, 286), np.int32)
+    wide[0, 0] = wide[1, 97] = 1 << 25
+    halving = [97, 32, 101, 116, 0, 10] + list(range(200, 219))
+    wide[2, halving] = [1 << (24 - i) for i in range(len(halving))]
+    wide[:, 256] = 1
+    cases.append((WIDE_LEAF_CASES[4], wide, 15))
     cases.append(("no_rows", np.zeros((0, 286), np.int32), 15))
     return cases
 

@@ -3,7 +3,8 @@
 ``check_chunk_size`` against what the JAX package's ``compress_corpus``
 traces (``jax.eval_shape`` of its batch encoder: the refusals are its
 trace-time asserts) at the boundaries of each rule, the long-range pass at
-a raised ``dom_segs`` included, and the port's cap at 16 MiB; the default
+a raised ``dom_segs`` included (the port's cap, 32 MiB, is held in
+``tests/test_torch_chunk_rules_32mib.py``); the default
 batch by chunk size; the JAX package's fault on text at 8 and 16 MiB pinned
 at row level (its package-merge gives a symbol of frequency 2**20 or more
 no code) beside the port's complete code, and the port's stream of such a
@@ -68,9 +69,8 @@ def _jax_takes(name: str, E: int) -> bool:
 
 
 # (options, chunk size, taken by the JAX package).  The presets without a
-# long-range pass up to the cap and one past it (the port's cap, which the
-# JAX package does not have); Default and high at their own segments past
-# their ends;
+# long-range pass up to 16 MiB and one past it; Default and high at their
+# own segments past their ends;
 # Default at 256 segments at its widest chunk (harvest rows of 32,766) and
 # the next size whose chunk and history divide into whole words (rows of
 # 32,768); Default and high at 512 segments, the cap's chunk and a size that
@@ -89,10 +89,7 @@ PAIRS = [("fast", 8 * MIB, True), ("fast", 16 * MIB, True), ("fast", 16 * MIB + 
 def test_check_chunk_size_follows_jax(name, E, taken):
     assert _jax_takes(name, E) == taken
     opts = tcorpus._resolve(_options(dt, name))
-    if E > tcorpus.MAX_CHUNK_SIZE:  # the port's cap: above it, the JAX package only
-        with pytest.raises(ValueError, match="at most 16777216"):
-            tcorpus.check_chunk_size(E, opts)
-    elif taken:
+    if taken:
         tcorpus.check_chunk_size(E, opts)
     else:
         with pytest.raises(ValueError):
@@ -162,8 +159,8 @@ def test_one_byte_value_at_16mib_round_trips(preset):
     assert zlib.decompress(got, wbits=-15) == data
 
 
-@pytest.mark.parametrize("name,E", [("default", 8 * MIB), ("fast", 16 * MIB + 16),
+@pytest.mark.parametrize("name,E", [("default", 8 * MIB), ("fast", 32 * MIB + 16),
                                     ("default_segs256", 16 * MIB)])
 def test_sharded_refuses_what_the_corpus_engine_refuses(name, E):
-    with pytest.raises(ValueError, match="long-range pass|at most 16777216"):
+    with pytest.raises(ValueError, match="long-range pass|at most 33554432"):
         make_sharded_encoder(make_mesh(device="cpu"), _options(dt, name), E)

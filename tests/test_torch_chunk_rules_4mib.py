@@ -68,7 +68,7 @@ def _jax_takes(name: str, E: int) -> bool:
 
 # (options, chunk size, taken by the JAX package): Default's and high's
 # long-range rules at their widest, the presets without that pass, the
-# lr_global knob, and the port's cap, which the JAX package does not have.
+# lr_global knob, and fast one past 4 MiB.
 PAIRS = [("default", MIB + 16, False), ("default", 2 * MIB, True),
          ("default", 3 * MIB + 256, True), ("default", 4_161_280, True),
          ("default", 4_161_280 + 256, False), ("default", 4 * MIB, False),
@@ -81,10 +81,7 @@ PAIRS = [("default", MIB + 16, False), ("default", 2 * MIB, True),
 def test_check_chunk_size_follows_jax(name, E, taken):
     assert _jax_takes(name, E) == taken
     opts = tcorpus._resolve(_options(dt, name))
-    if E > tcorpus.MAX_CHUNK_SIZE:  # the port's cap: above it, the JAX package only
-        with pytest.raises(ValueError, match="at most 4194304"):
-            tcorpus.check_chunk_size(E, opts)
-    elif taken:
+    if taken:
         tcorpus.check_chunk_size(E, opts)
     else:
         with pytest.raises(ValueError):

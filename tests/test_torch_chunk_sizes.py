@@ -73,10 +73,18 @@ def test_wide_chunks_zlib_framing_equals_jax():
     assert zlib.decompress(frame[0]) == _data("default_1m")
 
 
-@pytest.mark.parametrize("E", [16_777_216 + 256, 16_777_216 + 16, 32 << 20])
+@pytest.mark.parametrize("E", [33_554_432 + 256, 33_554_432 + 16, 64 << 20])
 def test_above_the_cap_raises_at_the_entry(E):
-    with pytest.raises(ValueError, match="at most 16777216"):
+    with pytest.raises(ValueError, match="at most 33554432"):
         tcorpus.compress_corpus(b"abc", chunk_size=E, **CPU)
+
+
+@pytest.mark.parametrize("preset", ["fast", "huffman_only"])
+def test_the_old_cap_plus_16_is_taken(preset):
+    """16 MiB + 16, past the cap until 32 MiB chunks, is a size the presets
+    without a long-range pass take, as the JAX package does."""
+    tcorpus.check_chunk_size(16_777_216 + 16,
+                             tcorpus._resolve(getattr(dt.CompressionOptions, preset)()))
 
 
 def test_sharded_two_ranks_at_4112_fast_equal_jax():

@@ -63,7 +63,9 @@ def test_corpus_presets_equal_jax(preset):
     # segments of whole 4-byte words.
     (65536 + 16, "must divide by 256"), (4096 + 128, "must divide by 256"),
     (4112, "must divide by 256"),
-    (16_777_216 + 256, "at most 16777216")])
+    # Past the cap until 32 MiB chunks: now Default's own harvest rule.
+    (16_777_216 + 256, "dominant-selection rows"),
+    (33_554_432 + 256, "at most 33554432"), (67_108_864, "at most 33554432")])
 def test_bad_chunk_size_raises_at_the_entry(chunk_size, match):
     with pytest.raises(ValueError, match=match):
         tcorpus.compress_corpus(b"abc", chunk_size=chunk_size, **CPU)

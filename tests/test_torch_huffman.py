@@ -130,21 +130,26 @@ PM_CASES = package_merge_cases()
 PM_IDS = [c[0] for c in PM_CASES]
 # (row, symbol) of the leaves of 2**20 and more that the XLA form gives
 # length 0 and the port keeps; its rows are the port's everywhere else.  At
-# 2**22 its int32 key wraps below every other and both agree; at 2**23 and
-# 2**24 it wraps to the symbol itself, which a row of one such leaf and EOB
-# survives, but not the row halving from 2**23: there the XLA form also
-# gives other lengths than the port (``XLA_MISRANKS``), and its code leaves
-# three quarters of Kraft's sum unused.
+# 2**22 its int32 key wraps below every other and both agree; at 2**23,
+# 2**24 and 2**25 it wraps to the symbol itself, which a row of one such
+# leaf and EOB survives, but not the rows halving from 2**23 and from 2**24:
+# there the XLA form also gives other lengths than the port
+# (``XLA_MISRANKS``), and its code leaves part of Kraft's sum unused.
 XLA_DROPS = {FREQ_2P20_CASE: [(1, 97)],
              WIDE_LEAF_CASES[0]: [(0, 0), (1, 97), (2, 97), (2, 32)],
              WIDE_LEAF_CASES[1]: [],
              WIDE_LEAF_CASES[2]: [(2, 101), (2, 116)],
-             WIDE_LEAF_CASES[3]: []}
+             WIDE_LEAF_CASES[3]: [],
+             WIDE_LEAF_CASES[4]: [(2, 116)]}
 # {(row, symbol): length} the XLA form gives where its wrapped keys misrank
 # the leaves (a nonzero length other than the port's).
 XLA_MISRANKS = {WIDE_LEAF_CASES[2]: {
     (2, 0): 3, (2, 10): 4, (2, 32): 15, (2, 97): 15, (2, 200): 5, (2, 201): 6, (2, 202): 7,
-    (2, 203): 8, (2, 204): 9, (2, 205): 10, (2, 206): 12, (2, 207): 12, (2, 208): 13}}
+    (2, 203): 8, (2, 204): 9, (2, 205): 10, (2, 206): 12, (2, 207): 12, (2, 208): 13},
+    WIDE_LEAF_CASES[4]: {
+    (2, 0): 2, (2, 10): 3, (2, 32): 15, (2, 97): 15, (2, 101): 15, (2, 200): 4, (2, 201): 5,
+    (2, 202): 6, (2, 203): 7, (2, 204): 8, (2, 205): 9, (2, 206): 10, (2, 207): 12,
+    (2, 208): 12, (2, 209): 14, (2, 210): 14}}
 
 
 @pytest.mark.parametrize("name,freqs,max_len", PM_CASES, ids=PM_IDS)
@@ -156,8 +161,9 @@ def test_adversarial_package_merge_equals_jax(name, freqs, max_len):
     Pallas wrapper drops such a leaf on any symbol (its sort key reaches
     ``BIG``).  The XLA form keeps a leaf of 2**20 on symbol 0 but not on 97,
     where the unused symbols below it sort ahead of it, drops every leaf of
-    2**21 (and of 2**20 beside it), keeps a leaf of 2**22, 2**23 and 2**24
-    beside EOB alone, and misranks the row halving from 2**23; the port
+    2**21 (and of 2**20 beside it), keeps a leaf of 2**22, 2**23, 2**24 and
+    2**25 beside EOB alone, and misranks the rows halving from 2**23 and
+    from 2**24; the port
     keeps them all, optimal (the recorded difference, ``XLA_DROPS`` and
     ``XLA_MISRANKS``, pinned here so that a reference that repairs it
     shows)."""

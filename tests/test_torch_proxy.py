@@ -14,7 +14,7 @@ histograms') and ``[R, 30]`` (the distance histograms'), in slices of
 them with the committed ones; the exact-ratio entries of the table's first
 form, which covered totals up to 262,209, are held to that form's digest.
 The entries past 4,194,369 are held in ``tests/test_torch_proxy_wide_*.py``.
-Run this file as a script to rewrite the whole table (about seven minutes;
+Run this file as a script to rewrite the whole table (about 14 minutes;
 ``torch_proxy_ref.generate_whole_table``):
 
     JAX_PLATFORMS=cpu python tests/test_torch_proxy.py
@@ -166,7 +166,7 @@ def test_committed_table_equals_jax_generated():
     are those of its first form, bit for bit (the digest of that form's
     packed bits)."""
     table = roundup_table()
-    assert proxy.TOT_MAX == (1 << 24) + 65
+    assert proxy.TOT_MAX == (1 << 25) + 129
     assert table.size == proxy.table_size()
     np.testing.assert_array_equal(generate_table(), table[FLAT])
     np.testing.assert_array_equal(generate_table(ND), table[FLAT])

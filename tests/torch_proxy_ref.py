@@ -22,16 +22,23 @@ ND = 30
 MAXLEN = 15
 SLICE_ROWS = 65536  # rows of one [R, width] evaluation; the last slice is padded
 # The table's first form covered totals up to 262,209 (chunks up to 256 KiB),
-# its second up to 4,194,369 (chunks up to 4 MiB).
+# its second up to 4,194,369 (chunks up to 4 MiB), its third up to
+# 16,777,281 (chunks up to 16 MiB).
 NARROW_TOT_MAX = 262209
 TOT_MAX_4MIB = (1 << 22) + 65
+TOT_MAX_16MIB = (1 << 24) + 65
 # Totals from f << k at which both forms are measured up to TOT_MAX_4MIB: the
 # switch offsets there lie in -5..8, and from 8 on either side of f << k the
 # exact count alone is right.
 DELTAS = range(-10, 11)
 # Totals from f << k at which the [R, 30] form is measured over the whole
-# table (offsets -31..40).
+# table: up to TOT_MAX_16MIB (offsets -31..40), and past it (offsets
+# -62..81).
 WIDE_DELTAS = range(-64, 65)
+WIDER_DELTAS = range(-128, 129)
+# Pairs measured at once while the whole table is generated (the lengths
+# at every total of a sweep are held in memory until the step is checked).
+BLOCK_PAIRS = 1 << 20
 
 
 def jax_lengths(freq_r):
@@ -122,7 +129,7 @@ def switch_offsets(ks, fs, deltas, width: int, lengths=None) -> np.ndarray:
     c = np.full(len(fs), deltas[-1] + 1, np.int64)
     got = {}
     for d in deltas:
-        got[d] = lengths(d).astype(np.int64)
+        got[d] = lengths(d).astype(np.int8)
         c = np.where((got[d] == ks + 1) & (c > d), d, c)
     for d, g in got.items():
         bad = (g >= 0) & (g != ks + (d >= c))
@@ -132,13 +139,21 @@ def switch_offsets(ks, fs, deltas, width: int, lengths=None) -> np.ndarray:
 
 def generate_whole_table() -> np.ndarray:
     """int64[table_size()]: the switch offsets of the whole table, measured
-    at ``WIDE_DELTAS`` in the ``[R, 30]`` form (a step at every pair), then
-    held on both sides of each step in the ``[R, 286]`` form, and up to
-    ``TOT_MAX_4MIB`` at every total of ``DELTAS`` in both forms."""
+    in blocks of ``BLOCK_PAIRS`` pairs in the ``[R, 30]`` form (a step at
+    every pair) at ``WIDE_DELTAS`` up to ``TOT_MAX_16MIB`` and at
+    ``WIDER_DELTAS`` past it, then held on both sides of each step in the
+    ``[R, 286]`` form, and up to ``TOT_MAX_4MIB`` at every total of
+    ``DELTAS`` in both forms."""
     ks, fs = table_pairs()
-    c = switch_offsets(ks, fs, WIDE_DELTAS, ND)
-    assert WIDE_DELTAS[0] < c.min() and c.max() <= WIDE_DELTAS[-1]
     base = fs << ks
+    c = np.empty(len(ks), np.int64)
+    for lo, hi, deltas in ((0, TOT_MAX_16MIB, WIDE_DELTAS),
+                           (TOT_MAX_16MIB, proxy.TOT_MAX, WIDER_DELTAS)):
+        sel = np.flatnonzero((base > lo) & (base <= hi))
+        for i in range(0, len(sel), BLOCK_PAIRS):
+            idx = sel[i : i + BLOCK_PAIRS]
+            c[idx] = switch_offsets(ks[idx], fs[idx], deltas, ND)
+            assert deltas[0] < c[idx].min() and c[idx].max() <= deltas[-1]
     for side in (0, 1):
         d = c - 1 + side
         keep = measured(base, d)
@@ -151,15 +166,26 @@ def generate_whole_table() -> np.ndarray:
     return c
 
 
-# The table's entries past TOT_MAX_4MIB, in three parts of 4,194,048 pairs
-# by the total f << k: (lowest total excluded, highest included, the sweep of
-# offsets from f << k at which the [R, 30] form is measured, pinned
-# (least, greatest switch offset), pairs whose offset is not 1, pairs two or
-# more from it).  The sweeps pass the offsets by four on either side.
+# The table's entries past TOT_MAX_4MIB, in parts by the total f << k:
+# (lowest total excluded, highest included, the sweep of offsets from f << k
+# at which the [R, 30] form is measured, pinned (least, greatest switch
+# offset), pairs whose offset is not 1, pairs two or more from it, pairs of
+# the part, stride).  The sweeps pass the offsets by four on either side.
+# Up to TOT_MAX_16MIB three parts of 4,194,048 pairs, each swept at every
+# pair (stride 1); past it (chunks above 16 MiB up to 32 MiB) two parts of
+# about 8.4 M pairs, swept at every 32nd pair and measured on both sides of
+# the step and at the sweep's ends at every pair.
 WIDE_PARTS = (
-    (TOT_MAX_4MIB, (1 << 23) + 65, range(-15, 21), (-11, 16), 3_703_895, 2_763_874),
-    ((1 << 23) + 65, 3 * (1 << 22) + 65, range(-28, 35), (-24, 30), 3_981_914, 3_573_665),
-    (3 * (1 << 22) + 65, proxy.TOT_MAX, range(-35, 45), (-31, 40), 4_052_770, 3_779_464),
+    (TOT_MAX_4MIB, (1 << 23) + 65, range(-15, 21), (-11, 16), 3_703_895, 2_763_874,
+     4_194_048, 1),
+    ((1 << 23) + 65, 3 * (1 << 22) + 65, range(-28, 35), (-24, 30), 3_981_914, 3_573_665,
+     4_194_048, 1),
+    (3 * (1 << 22) + 65, TOT_MAX_16MIB, range(-35, 45), (-31, 40), 4_052_770, 3_779_464,
+     4_194_048, 1),
+    (TOT_MAX_16MIB, 3 * (1 << 23) + 65, range(-53, 67), (-49, 62), 8_299_257, 7_915_347,
+     8_388_096, 32),
+    (3 * (1 << 23) + 65, proxy.TOT_MAX, range(-66, 86), (-62, 81), 8_325_996, 8_054_050,
+     8_388_160, 32),
 )
 
 
@@ -185,27 +211,33 @@ def port_lengths(tot, f) -> np.ndarray:
 def check_wide_part(part: int) -> None:
     """The committed offsets of one part of ``WIDE_PARTS`` equal those
     measured in the ``[R, 30]`` form at every total of its sweep (where the
-    JAX form is a step at each pair); the ``[R, 286]`` form gives k at
-    ``(f << k) + c - 1`` and k + 1 at ``(f << k) + c``; the port's lengths
-    equal the JAX form's there and at both ends of the sweep; and the
-    offsets have the pinned range and counts."""
-    lo, hi, sweep, (c_min, c_max), off_exact, off_by_two = WIDE_PARTS[part]
+    JAX form is a step at each pair), at every pair or every stride-th; the
+    ``[R, 286]`` form (and, where the sweep skips pairs, the ``[R, 30]``
+    form) gives k at ``(f << k) + c - 1`` and k + 1 at ``(f << k) + c`` at
+    every pair; the port's lengths equal the JAX form's there and at both
+    ends of the sweep; and the offsets have the pinned range and counts."""
+    lo, hi, sweep, (c_min, c_max), off_exact, off_by_two, n_pairs, stride = WIDE_PARTS[part]
     ks, fs, flat = part_pairs(part)
-    assert len(ks) == 4_194_048
+    assert len(ks) == n_pairs
     base = fs << ks
     assert measured(base, sweep[0]).all() and measured(base, sweep[-1]).all()
     c = proxy.load_switch_table()[flat].astype(np.int64)
-    np.testing.assert_array_equal(switch_offsets(ks, fs, sweep, ND), c)
+    np.testing.assert_array_equal(
+        switch_offsets(ks[::stride], fs[::stride], sweep, ND), c[::stride])
     assert (int(c.min()), int(c.max())) == (c_min, c_max)
     assert sweep[0] + 4 == c_min and c_max + 4 == sweep[-1]
     assert int((c != 1).sum()) == off_exact
     assert int(((c <= -1) | (c >= 3)).sum()) == off_by_two
+    widths = (NL,) if stride == 1 else (NL, ND)
     for d, want in ((c - 1, ks), (c, ks + 1)):
-        np.testing.assert_array_equal(column0_lengths(fs, base + d, NL), want)
+        for width in widths:
+            np.testing.assert_array_equal(column0_lengths(fs, base + d, width), want)
         np.testing.assert_array_equal(port_lengths(base + d, fs), want)
     for d in (sweep[0], sweep[-1]):
         want = ks + (d >= c)
         np.testing.assert_array_equal(port_lengths(base + d, fs), want)
+        if stride > 1:
+            np.testing.assert_array_equal(column0_lengths(fs, base + d, ND), want)
 
 
 def hitting_rows(rng, R: int, part: int, width: int = NL) -> np.ndarray:
