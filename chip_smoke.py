@@ -4,6 +4,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+``--phases sharded,soak`` runs the setup and only the named phases (any of
+``PHASES``, the function phases below from decode on) and prints no kernels
+line: on a machine with four cards, ``python3 chip_smoke.py --phases
+sharded,soak`` runs the multi-card rows alone.
+
 Phases (each prints a line; any failure exits non-zero):
 
 1. setup: a CUDA device is required (no CPU fallback); prints the card's
@@ -98,7 +103,25 @@ Phases (each prints a line; any failure exits non-zero):
    encoder without and with checksums and the sharded step, in turns, at 16
    and 64 chunks of the mix, with the step's words equal to the plain
    encoder's (printed as ``overhead:`` lines).  Then
-   ``tools.dryrun_multichip.dryrun_multichip`` spawns one rank a card.
+   ``tools.dryrun_multichip.dryrun_multichip`` spawns one rank a card (with
+   two cards or more also in one process, and with four or more as ranks of
+   two cards).  Then the mesh of every card in this process, with no process
+   group (``make_mesh``, the JAX package's own mode): packed and byte-aligned
+   bytes equal the one-shot bytes, on one card its shard equals the
+   world-size-1 step's array for array, and each card launches the kernels
+   once a step (timed, three runs).  With one card the phase says that the
+   multi-card rows were not run.  With two or more: each kernel on every
+   card, called with ``cuda:0`` current, against its plain version on the
+   operands of that card's block; the scaling rows of
+   ``tools/scaling_curve.py`` (64 MiB of the mix at 64 KiB chunks, steps of
+   256 chunks, step plus packed splice: MB/s of five warm runs, each card's
+   peak memory and busy share) at 1, 2, 4 ... cards, in one process from one
+   host thread, with a thread a card, and as one rank a card, plus ranks of
+   two cards over every card; over every card also 512 MiB of the mix at
+   32 MiB chunks, fast and Default at 1,024 segments, one chunk a card a
+   step, in every form (one warm run timed after one); every stream equal to
+   the one-shot ``compress_corpus`` bytes of one card (``SCALING_ROW`` and
+   ``BYTES_ROW`` lines).
 11. knobs: the long-range knobs on Default and high, each with
    ``lr_global=64``, ``lr_global=256`` and ``lr_stride=2``, on pg11 and the
    mix's first 1 MiB: CUDA bytes equal the CPU port's and round-trip.
@@ -119,7 +142,9 @@ Phases (each prints a line; any failure exits non-zero):
    its corpus (the tool's default of 512 MiB cut to a quarter, to keep this
    script short), in steps of 32 chunks: the byte-aligned stream round-trips through
    zlib, the combined checksums equal zlib's, the packed splice equals the
-   one-shot bytes; MB/s and bytes fetched.
+   one-shot bytes; MB/s and bytes fetched.  With two cards or more, the same
+   over 1 GiB on every card, in one process and as one rank a card, 32
+   chunks a card a step.
 13. stages: ``tools/stage_timing.py`` for Default, fast and high at 64
    chunks of the mix and Default at one chunk: each stage of
    ``ChunkEncoder.forward`` on the real outputs of the stages before it, its
@@ -462,6 +487,21 @@ def timed_run(dt, cuda, data: bytes, opts, label: str, off_path: tuple = (TILED,
     return launches
 
 
+def wall_of(fn):
+    """(``fn()``, host seconds from a sync of every card to the next)."""
+    import torch
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
 def _cap(n: int) -> int:
     return max(4096, (n + 4095) & ~4095)
 
@@ -635,10 +675,12 @@ def overhead_phase(mix: bytes, smi: str) -> None:
 
 
 def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes,
-                  wall_of, smi: str) -> dict:
+                  wall_of, smi: str) -> tuple:
     """The sharded encoder over NCCL at world size 1 (in this process, so the
-    launch counters see it) on the mix, then the dry run over every card.
-    Returns the kernels' launches during one timed sharded run."""
+    launch counters see it) on the mix, the dry run over every card, then
+    the mesh of every card in this process (``mesh_run``) and, with two cards
+    or more, the multi-card rows (``multi_card_rows``).  Returns the kernels'
+    launches during one timed run of the world-size-1 step and of the mesh."""
     import shutil
     import tempfile
 
@@ -709,13 +751,173 @@ def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     n = torch.cuda.device_count()
-    t0 = time.perf_counter()
-    s = dryrun_multichip(n, emit=emit, device="cuda")
-    print(f"sharded: dryrun_multichip({n}) in {time.perf_counter() - t0:.1f} s: "
-          f"{s['chunks']} chunks, {s['input_bytes']} -> {s['aligned_bytes']} B (packed "
-          f"{s['packed_bytes']}), block types {s['block_types']}; the file the ranks wrote "
-          "round-trips and equals the one-shot bytes; more than one card is not measured here")
+    forms = [(f"{n} ranks of one card", {})]
+    if n > 1:
+        forms.append(("one process", {"single_process": True}))
+    if n >= 4 and n % 2 == 0:
+        forms.append((f"{n // 2} ranks of two cards", {"local_devices": 2}))
+    for form, kw in forms:
+        t0 = time.perf_counter()
+        s = dryrun_multichip(n, emit=emit, device="cuda", **kw)
+        print(f"sharded: dryrun_multichip({n}), {form}, in {time.perf_counter() - t0:.1f} s: "
+              f"{s['chunks']} chunks, {s['input_bytes']} -> {s['aligned_bytes']} B (packed "
+              f"{s['packed_bytes']}), block types {s['block_types']}; the file the processes "
+              "wrote round-trips and equals the one-shot bytes")
+    mesh_counts = mesh_run(dt, cuda, mix, one_shot, aligned_one_shot, shard, counts, wall_of)
+    if n == 1:
+        print("sharded: one card: the multi-card rows (a mesh of several cards in one process, "
+              "several NCCL ranks, ranks of two cards, the kernels on every card, the scaling "
+              "rows) were not run")
+    else:
+        multi_card_rows(dt, cuda, mix, smi)
+    return counts, mesh_counts
+
+
+def mesh_run(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes, w1_shard: dict,
+             w1_counts: dict, wall_of) -> dict:
+    """The sharded step on the mesh of every card this process sees, with no
+    process group (the JAX package's own mode): packed and byte-aligned bytes
+    equal the one-shot bytes, and on one card its shard equals the
+    world-size-1 step's array for array; each card launches the world-size-1
+    step's kernels once a step.  Returns the launches of one timed run."""
+    import numpy as np
+    import torch
+
+    from deflate_rs_tpu_torch.parallel.mesh import make_mesh
+    from deflate_rs_tpu_torch.parallel.sharded import assemble_host, make_sharded_encoder
+    from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch
+
+    emit = 65536
+    mesh = make_mesh(device="cuda")
+    step = make_sharded_encoder(mesh, dt.CompressionOptions.default(), emit)
+    bufs, hist, ns, lasts = build_batch(mix, emit)
+    payloads = [mix[i * emit : i * emit + int(ns[i])] for i in range(len(ns))]
+
+    def run():
+        shard = step(bufs, hist, ns, lasts)
+        return shard, assemble_host(shard, packed=True, payloads=payloads, is_lasts=lasts)
+
+    shard, packed = run()  # warm
+    aligned = assemble_host(shard, payloads=payloads, is_lasts=lasts)
+    if packed != one_shot or aligned != aligned_one_shot:
+        raise SystemExit(f"sharded mesh: {mesh.size} cards in one process: the packed "
+                         f"({packed == one_shot}) or byte-aligned ({aligned == aligned_one_shot}) "
+                         "bytes differ from the one-shot bytes")
+    if mesh.size == 1:
+        differ = [k for k in w1_shard if not np.array_equal(np.asarray(w1_shard[k]),
+                                                             np.asarray(shard[k]))]
+        if differ or set(shard) != set(w1_shard):
+            raise SystemExit(f"sharded mesh: the one-card mesh's shard differs from the "
+                             f"world-size-1 step's in {differ or set(shard) ^ set(w1_shard)}")
+    mb = len(mix) / 1e6
+    rates, counts = [], None
+    for _ in range(3):
+        cuda.reset_launches()
+        (_, out), wall = wall_of(run)
+        counts = counts or {n_: k.launches for n_, k in cuda.KERNELS.items()}
+        if out != one_shot:
+            raise SystemExit("sharded mesh: bytes changed between runs")
+        rates.append(mb / wall)
+    check_launches("sharded mesh", counts)
+    want = {k: v * mesh.size for k, v in w1_counts.items()}
+    if counts != want:
+        raise SystemExit(f"sharded mesh: launches {counts}, not once a card a step ({want})")
+    same = " and its shard == the world-size-1 step's array for array" if mesh.size == 1 else ""
+    print(f"sharded mesh: {mesh.size} card{'s' * (mesh.size > 1)} in one process "
+          f"({', '.join(map(str, mesh.devices))}), no process group, {len(ns)} chunks of {emit} "
+          f"B: packed == one-shot, byte-aligned == compress_stream(packed=False){same}; step + "
+          f"packed splice {[round(r, 2) for r in rates]} MB/s (warm); launches of one run "
+          f"{counts}")
+    del step
+    torch.cuda.empty_cache()
     return counts
+
+
+def multi_card_rows(dt, cuda, mix: bytes, smi: str) -> None:
+    """With two cards or more: each kernel on every card, called from a
+    process whose current device is ``cuda:0``, against its plain version on
+    the operands of that card's block of the mesh; then the scaling rows of
+    ``tools/scaling_curve.py`` on the 64 MiB mix at 64 KiB chunks (steps of
+    256 chunks) at 1, 2, 4 ... cards in the process, threads and ranks forms,
+    and, over every card, the same and 512 MiB of the mix at 32 MiB chunks
+    (fast, and Default at 1,024 segments; one chunk a card a step; one warm
+    run timed after one) in every form and as ranks of two cards: every
+    packed stream equals the one-shot ``compress_corpus`` bytes on one
+    card."""
+    import torch
+
+    from deflate_rs_tpu_torch.ops import field_kernel, hist_kernel, lr_kernel, parse_scan, pm_kernel
+    from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
+    from deflate_rs_tpu_torch.tools import scaling_curve as sc
+    from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch
+
+    n = torch.cuda.device_count()
+    emit = 65536
+    pairs = {
+        "lr_measure": (lr_kernel.lr_measure, lr_kernel.lr_measure_plain),
+        "parse_scan": (parse_scan.parse_scan, parse_scan.parse_scan_plain),
+        "token_fields": (field_kernel.token_fields, field_kernel.token_fields_plain),
+        "lengths_by_rank_15": (pm_kernel.lengths_by_rank, pm_kernel.lengths_by_rank_plain),
+        "lengths_by_rank_7": (pm_kernel.lengths_by_rank, pm_kernel.lengths_by_rank_plain),
+        "quarter_histograms": (hist_kernel.quarter_histograms,
+                               hist_kernel.quarter_histograms_plain),
+    }
+    operands = build_batch(mix, emit)
+    per = len(operands[2]) // n
+    torch.cuda.set_device(0)
+    for k in range(n):
+        card = torch.device("cuda", k)
+        enc = ChunkEncoder(dt.CompressionOptions.default(), emit, with_checksums=True,
+                           stored_payload_fields=False).to(card)
+        bufs, hist, ns, last = (torch.from_numpy(a[k * per : (k + 1) * per]) for a in operands)
+        with torch.no_grad():
+            seen = harvest(enc, bufs.to(card), hist, ns, last)
+        errs = {}
+        for key, (kern, plain) in pairs.items():
+            args = seen[key]
+            got, want = kern(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize(card)
+            if any(g.device != card for g in got) or torch.cuda.current_device() != 0:
+                raise SystemExit(f"kernels on {card}: {key} ran off its card or moved the "
+                                 "current device")
+            errs[key] = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                            for g, w in zip(got, want))
+        if any(errs.values()):
+            raise SystemExit(f"kernels on {card}: disagree with their plain versions: {errs}")
+        print(f"kernels on {card} (current device cuda:0), its block of {per} chunks of the mix: "
+              f"every kernel == its plain version, max_abs_err {errs}")
+        del enc, seen
+    torch.cuda.empty_cache()
+
+    curve = sc.Spec(64 << 20)
+    big = [sc.Spec(512 << 20, 32 << 20, n, "fast", runs=1, profile=False),
+           sc.Spec(512 << 20, 32 << 20, n, "default", 1024, runs=1, profile=False)]
+    t0 = time.perf_counter()
+    wants = {spec: sc.one_shot(spec) for spec in [curve, *big]}
+    torch.cuda.empty_cache()
+    print(f"scaling: one-shot references on cuda:0 in {time.perf_counter() - t0:.1f} s")
+    counts = [m for m in (1, 2, 4, 8, 16) if m <= n]
+    runs = [(form, m, {}) for m in counts for form in sc.FORMS if (form, m) != ("threads", 1)]
+    if n >= 4 and n % 2 == 0:
+        runs.append(("ranks", n, {"local_devices": 2}))
+    summary = {}
+    for form, m, kw in runs:
+        specs = [curve] + (big if m == n else [])
+        label = form if not kw else f"ranks of {kw['local_devices']} cards"
+        t0 = time.perf_counter()
+        results = sc.run_form(form, m, specs, **kw)
+        for spec, res in zip(specs, results):
+            r = sc.row(label, m, spec, res, wants[spec], smi)
+            print(("SCALING_ROW " if spec is curve else "BYTES_ROW ") + json.dumps(r))
+            summary[label, m, spec.emit >> 10, spec.preset] = r["mb_per_s_median"]
+        print(f"scaling: {label}, {m} card{'s' * (m > 1)}: {len(specs)} inputs, packed == "
+              f"one-shot bytes, {time.perf_counter() - t0:.1f} s")
+    print("scaling: MB/s, step + packed splice, median of 5 warm runs on 64 MiB of the mix at "
+          "64 KiB chunks (steps of 256 chunks), one warm run on 512 MiB at 32 MiB chunks (one "
+          "a card a step): " + "; ".join(f"{label} x{m} {kib} KiB {preset} {v:.2f}"
+                                       for (label, m, kib, preset), v in summary.items()))
 
 
 def lr_plain_rows(args, step: int = 16):
@@ -882,13 +1084,20 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
 
 
 SOAK_MIB = 128  # the tool's default is 512 MiB: cut to keep this script short
+SOAK_CARDS_MIB = 1024  # over several cards, in both forms
+SOAK_CARD_STEP = 32  # chunks a card a step over several cards, as at world size 1
 
 
 def soak_phase() -> None:
     """The sharded soak at world size 1 over NCCL: steps of 32 chunks over
     ``SOAK_MIB`` MiB, byte-aligned stream through zlib, combined checksums,
-    packed splice == the one-shot bytes."""
-    from deflate_rs_tpu_torch.tools.sharded_soak import soak
+    packed splice == the one-shot bytes.  With two cards or more, the same
+    over ``SOAK_CARDS_MIB`` MiB on every card, in one process and as one
+    rank a card, ``SOAK_CARD_STEP`` chunks a card a step."""
+    import torch
+
+    import deflate_rs_tpu_torch as dt
+    from deflate_rs_tpu_torch.tools.sharded_soak import build_corpus, soak
 
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     t0 = time.perf_counter()
@@ -899,6 +1108,27 @@ def soak_phase() -> None:
           f"== zlib's, packed == one-shot bytes; {s['mb_per_s']:.2f} MB/s ({s['seconds']:.2f} s "
           f"of steps and splices); fetched {s['fetched_bytes']} B; block types "
           f"{s['block_types']}; {time.perf_counter() - t0:.1f} s with the spawn and the checks")
+    n = torch.cuda.device_count()
+    if n == 1:
+        print(f"soak: one card: the {SOAK_CARDS_MIB} MiB soak over several cards was not run")
+        return
+    t0 = time.perf_counter()
+    total = SOAK_CARDS_MIB << 20
+    one_shot = dt.deflate_bytes_conf(build_corpus(total), dt.CompressionOptions.default(),
+                                     device="cuda")
+    print(f"soak: one-shot bytes of {SOAK_CARDS_MIB} MiB on cuda:0, {len(one_shot)} B, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for single in (True, False):
+        t0 = time.perf_counter()
+        s = soak(total, world=n, device="cuda", step_chunks=SOAK_CARD_STEP * n,
+                 single_process=single, one_shot=one_shot)
+        form = "one process" if single else f"{n} ranks over NCCL"
+        print(f"soak: {n} cards, {form}, {SOAK_CARDS_MIB} MiB, {s['steps']} steps of "
+              f"{SOAK_CARD_STEP * n} chunks: {s['input_bytes']} -> {s['stream_bytes']} B "
+              f"byte-aligned ({s['packed_bytes']} B packed), round-trips through zlib, "
+              f"checksums == zlib's, packed == one-shot bytes; {s['mb_per_s']:.2f} MB/s "
+              f"({s['seconds']:.2f} s of steps and splices); fetched {s['fetched_bytes']} B; "
+              f"{time.perf_counter() - t0:.1f} s with the checks")
 
 
 STAGE_RUNS = (("default", 64), ("fast", 64), ("high", 64), ("default", 1))
@@ -1559,9 +1789,61 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
     return launches, rows
 
 
-def main() -> int:
+def some_phases(dt, cuda, only: list, pg11: bytes, mix: bytes, presets: dict, smi: str,
+                t_start: float) -> int:
+    """The phases ``only`` names, in the order of a whole run, each with what
+    it would be handed there; the ``{"ok": true, ...}`` line, no kernels line."""
     import torch
 
+    from deflate_rs_tpu_torch.parallel import corpus
+
+    for name in [p for p in PHASES if p in only]:
+        if name == "decode":
+            decode_phase(dt, cuda, pg11, mix[: 1 << 20], presets)
+        elif name == "sharded":
+            sharded_phase(dt, cuda, mix, corpus.compress_corpus(mix, device="cuda").deflate,
+                          corpus.compress_corpus(mix, packed=False, device="cuda").deflate,
+                          wall_of, smi)
+        elif name == "knobs":
+            knobs_phase(dt, cuda, pg11, mix, wall_of)
+        elif name == "soak":
+            soak_phase()
+        elif name == "stages":
+            stages_phase(cuda, mix, smi)
+        elif name == "fuzz":
+            fuzz_phase(cuda)
+        elif name == "margins":
+            margins_phase()
+        else:
+            chunks_phase(dt, cuda, wall_of)
+        print(f"{name}: phase done at {time.perf_counter() - t_start:.1f} s")
+    print(f"done in {time.perf_counter() - t_start:.1f} s: the phases {only} alone, so no "
+          "kernels line")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# The phases of a run that ``--phases`` may name alone: each is a function of
+# this module that needs nothing of the phases before it.
+PHASES = ("decode", "sharded", "knobs", "soak", "stages", "fuzz", "margins", "chunks")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help=f"run only these phases, comma-separated, of {', '.join(PHASES)} "
+                         "(the setup too, and no kernels line); by default every phase")
+    a = ap.parse_args(argv)
+    only = None if a.phases is None else a.phases.split(",")
+    if only is not None and (not only or set(only) - set(PHASES)):
+        print(f"chip_smoke: --phases takes names of {PHASES}, not {a.phases!r}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
@@ -1601,6 +1883,8 @@ def main() -> int:
         "ForceFixed": O(special=dt.SpecialOptions.ForceFixed),
         "ForceStored": O(special=dt.SpecialOptions.ForceStored),
     }
+    if only is not None:
+        return some_phases(dt, cuda, only, pg11, mix, presets, smi, t_start)
 
     # ------------------------------------------ kernels vs plain, both tiers
     def quarter_hist_plain(a):
@@ -1924,13 +2208,6 @@ def main() -> int:
     mb = len(mix) / 1e6
     default = O.default()
 
-    def wall_of(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     old = compress_stream(mix, default, pipelined=False, device="cuda")  # warm
     new = corpus.compress_corpus(mix, device="cuda")
     if new.deflate != old.deflate:
@@ -2098,7 +2375,8 @@ def main() -> int:
     print(f"decode: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------------ sharded
-    launches["sharded"] = sharded_phase(dt, cuda, mix, new.deflate, unpacked, wall_of, smi)
+    launches["sharded"], launches["sharded_mesh"] = sharded_phase(
+        dt, cuda, mix, new.deflate, unpacked, wall_of, smi)
     print(f"sharded: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # -------------------------------------------------------------- knobs
@@ -2168,6 +2446,7 @@ def main() -> int:
             "launches_streaming": launches["streaming"][name],
             "launches_single_chunk": launches["single_chunk"][name],
             "launches_sharded": launches["sharded"][name],
+            "launches_sharded_mesh": launches["sharded_mesh"][name],
             "launches_decode": launches["decode"][name],
             "batch": kb,
             "b1_ms": sum(results[k]["b1_ms"] for k in timed),

@@ -1,16 +1,26 @@
-"""Device groups for the sharded encoder, on ``torch.distributed``.
+"""Device meshes for the sharded encoder, on ``torch.distributed``.
 
 Port of ``deflate_rs_tpu/parallel/mesh.py``.  The unit of data parallelism
 is the independent chunk: a batch's chunks are split into contiguous row
-blocks, one per rank, each rank drives one device, and the only collective
-is the all-gather of the per-chunk compressed sizes
-(``parallel/sharded.py``).  Ranks talk over NCCL on CUDA devices and over
-gloo on the CPU.
+blocks, one per device in mesh order, and the only collective is the
+all-gather of the per-chunk compressed sizes (``parallel/sharded.py``).
 
-A JAX mesh spans the devices of every process; here a process owns one
-device, so a ``Mesh`` is a process group, this process's rank in it and its
-device.  Without an initialised process group, ``make_mesh`` gives the
-one-rank mesh of this process alone.
+A ``Mesh`` is a 1-D row of devices, as the JAX package's is.  It holds this
+process's devices (a tuple, in mesh order), the device count over every
+process, and the process group with this process's rank in it.  Three
+forms:
+
+- one process, no process group: the first ``num_devices`` cards this
+  process sees, as ``jax.devices()[:num_devices]`` (on the CPU,
+  ``num_devices`` logical devices, each the ``cpu`` device, as the JAX
+  tests' ``--xla_force_host_platform_device_count``);
+- one card a rank of a process group (``LOCAL_RANK``'s card): ranks talk
+  over NCCL on CUDA devices and over gloo on the CPU;
+- ``local_devices`` cards a rank: every rank drives several cards, and the
+  mesh is every rank's cards in rank order.
+
+A process's rows are a contiguous block of the batch
+(``local_chunk_range``), which it splits over its own devices in order.
 """
 
 from __future__ import annotations
@@ -24,13 +34,19 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One device per rank: the group (None for a single process without
-    ``torch.distributed``), its size, this process's rank and device."""
+    """The group (None for a single process without ``torch.distributed``),
+    the device count over every process, this process's rank and its
+    devices in mesh order."""
 
     group: object
     size: int
     rank: int
-    device: torch.device
+    devices: tuple
+
+    @property
+    def device(self) -> torch.device:
+        """This process's first device: the one its collectives run on."""
+        return self.devices[0]
 
 
 def init_distributed(init_method: str | None = None, world_size: int | None = None,
@@ -41,14 +57,21 @@ def init_distributed(init_method: str | None = None, world_size: int | None = No
     CUDA ``device``, gloo for the CPU.  Arguments default to ``torchrun``'s
     environment (``env://`` with ``MASTER_ADDR``/``MASTER_PORT``,
     ``WORLD_SIZE``, ``RANK``).  ``init_method="file:///path"`` rendezvous
-    through a file that no other run uses, with no socket.
+    through a file that no other run uses, with no socket.  On CUDA the
+    rank's card (``cuda:<LOCAL_RANK>``, see :func:`make_mesh`) becomes the
+    current device first, so the group's collectives run on it.
     """
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    rank = int(os.environ["RANK"]) if rank is None else rank
+    dev = torch.device(device)
+    backend = "gloo"
+    if dev.type == "cuda":
+        backend = "nccl"
+        torch.cuda.set_device(dev if dev.index is not None else _rank_card(rank))
     dist.init_process_group(
         backend,
         init_method=init_method or "env://",
         world_size=int(os.environ["WORLD_SIZE"]) if world_size is None else world_size,
-        rank=int(os.environ["RANK"]) if rank is None else rank,
+        rank=rank,
     )
 
 
@@ -56,29 +79,82 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
-def make_mesh(num_devices: int | None = None, *, device="cuda") -> Mesh:
-    """The mesh of every rank of the process group, one device per rank.
+def _rank_card(rank: int, per_rank: int = 1) -> torch.device:
+    """The first of a rank's ``per_rank`` cards: ``LOCAL_RANK`` (torchrun's
+    variable; the rank when unset) times ``per_rank``; one card a rank wraps
+    around the cards this process sees."""
+    first = int(os.environ.get("LOCAL_RANK", rank)) * per_rank
+    return torch.device("cuda", first % torch.cuda.device_count() if per_rank == 1 else first)
 
-    A CUDA ``device`` without an index means this rank's card,
-    ``cuda:<LOCAL_RANK>`` (``torchrun``'s variable; the rank when unset)
-    modulo the cards this process sees.  ``num_devices``, where given, must
-    be the world size: a rank drives exactly one device.
+
+def make_mesh(num_devices: int | None = None, *, device="cuda",
+              local_devices: int | None = None) -> Mesh:
+    """A 1-D mesh of devices (see the module docstring for its forms).
+
+    Without a process group: the first ``num_devices`` cards of this process
+    (by default every card it sees), or ``num_devices`` logical CPU devices
+    (by default one); a CUDA ``device`` with an index is that card alone.
+    In a process group: ``local_devices`` devices a rank (by default one),
+    a rank's cards from ``LOCAL_RANK * local_devices`` on, and ``num_devices``,
+    where given, must be the mesh's size.  More cards than the process sees,
+    or ranks that do not hold as many devices each, raise ``ValueError``.
     """
-    initialised = dist.is_available() and dist.is_initialized()
-    size = dist.get_world_size() if initialised else 1
-    rank = dist.get_rank() if initialised else 0
-    if num_devices is not None and num_devices != size:
-        raise ValueError(f"a mesh of {num_devices} devices needs {num_devices} ranks, one a "
-                         f"device; the process group has {size}")
     dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        dev = torch.device("cuda", local % torch.cuda.device_count())
-    return Mesh(dist.group.WORLD if initialised else None, size, rank, dev)
+    initialised = dist.is_available() and dist.is_initialized()
+    if not initialised:
+        if local_devices is not None:
+            raise ValueError("local_devices= sets a rank's devices in a process group; "
+                             "without one, num_devices= is the mesh")
+        if dev.type != "cuda":
+            devices = (dev,) * (1 if num_devices is None else num_devices)
+        elif dev.index is not None:
+            if num_devices not in (None, 1):
+                raise ValueError(f"{dev} is one card, not a mesh of {num_devices}")
+            devices = (dev,)
+        else:
+            seen = torch.cuda.device_count()
+            n = seen if num_devices is None else num_devices
+            if n > seen:
+                raise ValueError(f"a mesh of {n} cards needs {n} cards; this process sees "
+                                 f"{seen}")
+            devices = tuple(torch.device("cuda", i) for i in range(n))
+        if not devices:
+            raise ValueError("a mesh needs at least one device")
+        return Mesh(None, len(devices), 0, devices)
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    per_rank = 1 if local_devices is None else local_devices
+    if per_rank < 1:
+        raise ValueError(f"local_devices={local_devices}: a rank drives at least one device")
+    if dev.type != "cuda":
+        devices = (dev,) * per_rank
+    else:
+        first = dev if dev.index is not None and per_rank == 1 else _rank_card(rank, per_rank)
+        if first.index + per_rank > torch.cuda.device_count():
+            raise ValueError(f"rank {rank} needs cards {first.index} to "
+                             f"{first.index + per_rank - 1}; this process sees "
+                             f"{torch.cuda.device_count()}")
+        devices = tuple(torch.device("cuda", first.index + i) for i in range(per_rank))
+        # The group's collectives run on the rank's first card; bind it before
+        # the first one (init_distributed bound LOCAL_RANK's card).
+        torch.cuda.set_device(devices[0])
+    counts = [None] * world
+    dist.all_gather_object(counts, per_rank)
+    if len(set(counts)) != 1:
+        raise ValueError(f"the ranks hold {counts} devices: every rank must hold as many, "
+                         "so that the rows split evenly")
+    size = sum(counts)
+    if num_devices is not None and num_devices != size:
+        if per_rank == 1:
+            raise ValueError(f"a mesh of {num_devices} devices needs {num_devices} ranks, one "
+                             f"a device; the process group has {world}")
+        raise ValueError(f"a mesh of {num_devices} devices does not match {world} ranks of "
+                         f"{per_rank} devices")
+    return Mesh(dist.group.WORLD, size, rank, devices)
 
 
 def local_chunk_range(global_b: int, mesh: Mesh | None = None) -> range:
-    """The [start, stop) rows of a ``global_b``-row batch that THIS rank
+    """The [start, stop) rows of a ``global_b``-row batch that THIS process
     encodes, fetches and writes: contiguous row blocks in rank order.
 
     A batch that does not divide over the ranks is an error (pad it), as is

@@ -1,21 +1,31 @@
-"""Multi-rank dry run of the sharded encoder, and the spawner it uses.
+"""Dry run of the sharded encoder over a mesh of ``n`` devices, and the
+spawner it uses.
 
 The torch form of ``__graft_entry__.dryrun_multichip`` and
-``scripts/multihost_dryrun.py``: ``n`` spawned ranks (gloo on the CPU, NCCL
-on CUDA devices, one card a rank) run one sharded encode step over mixed
-content, four chunks a rank: text (dynamic blocks and splits), random bytes
-(stored chunks, which contribute no words to the compacted fetch), runs,
-periodic binary and a text/binary alternation.  Each rank writes its
-byte-aligned segment at its global offset into one shared file, the
-multi-host pattern; the parent checks the file against ``zlib`` and against
-the one-shot bytes at the same chunk grid, then splices every rank's shard
-packed and checks that against the one-shot packed bytes.
+``scripts/multihost_dryrun.py``: one sharded encode step over mixed content,
+four chunks a device: text (dynamic blocks and splits), random bytes (stored
+chunks, which contribute no words to the compacted fetch), runs, periodic
+binary and a text/binary alternation.  Three forms of the mesh:
+
+- ``--single-process``: one process drives all ``n`` devices, as
+  ``__graft_entry__.dryrun_multichip(n)`` does with one JAX process;
+- ``n`` spawned ranks of one device each (gloo on the CPU, NCCL on CUDA);
+- ``--local-devices k``: ``n / k`` spawned ranks of ``k`` devices each.
+
+Each process writes its byte-aligned segment at its global offset into one
+shared file, the multi-host pattern; the parent checks the file against
+``zlib`` and against the one-shot bytes at the same chunk grid, then splices
+every process's shard packed and checks that against the one-shot packed
+bytes.
 
     python3 -m deflate_rs_tpu_torch.tools.dryrun_multichip --ranks 2 --device cpu --emit 4096
+    python3 -m deflate_rs_tpu_torch.tools.dryrun_multichip --ranks 4 --single-process
+    python3 -m deflate_rs_tpu_torch.tools.dryrun_multichip --ranks 4 --local-devices 2
     python3 -m deflate_rs_tpu_torch.tools.dryrun_multichip --ranks 1   # one card, NCCL
 
 Ranks meet through ``init_method="file://..."`` in a fresh temporary
-directory: no socket is opened for the rendezvous.
+directory: no socket is opened for the rendezvous.  On CUDA the kernel
+library is built once, before any rank starts.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import argparse
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 import zlib
 
@@ -71,33 +82,37 @@ def dryrun_data(emit: int, n_chunks: int) -> bytes:
     return (unit * (emit * n_chunks // len(unit) + 1))[: emit * n_chunks]
 
 
-def _rank_entry(rank: int, world: int, init_file: str, device: str, fn, args,
-                result_dir: str) -> None:
+def _rank_entry(rank: int, world: int, init_file: str, device: str, local_devices: int, fn,
+                args, result_dir: str) -> None:
     from ..parallel.mesh import init_distributed, make_mesh
 
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)  # ranks share the machine's cores
-    else:
-        torch.cuda.set_device(rank % torch.cuda.device_count())
     init_distributed(f"file://{init_file}", world, rank, device=device)
     try:
-        result = fn(make_mesh(device=device), *args)
+        result = fn(make_mesh(device=device, local_devices=local_devices), *args)
     finally:
         torch.distributed.destroy_process_group()
     with open(os.path.join(result_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
 
 
-def spawn_ranks(fn, world: int, args: tuple = (), *, device="cuda") -> list:
+def spawn_ranks(fn, world: int, args: tuple = (), *, device="cuda",
+                local_devices: int = 1) -> list:
     """Run ``fn(mesh, *args)`` in ``world`` spawned ranks of one process
-    group and return their results in rank order.  ``fn`` is a module-level
-    function (it is pickled by name); its module is imported afresh in every
-    rank.  A rank that raises makes this raise."""
+    group, each with ``local_devices`` devices of the mesh, and return their
+    results in rank order.  ``fn`` is a module-level function (it is pickled
+    by name); its module is imported afresh in every rank.  A rank that
+    raises makes this raise."""
+    if torch.device(device).type == "cuda":
+        from ..runtime import cuda
+
+        cuda.load_library()  # build once, before the ranks load it
     tmp = tempfile.mkdtemp(prefix="deflate_ranks_")
     try:
         torch.multiprocessing.spawn(
-            _rank_entry, args=(world, os.path.join(tmp, "rendezvous"), str(device), fn, args,
-                               tmp),
+            _rank_entry, args=(world, os.path.join(tmp, "rendezvous"), str(device),
+                               local_devices, fn, args, tmp),
             nprocs=world, join=True)
         results = []
         for r in range(world):
@@ -109,10 +124,11 @@ def spawn_ranks(fn, world: int, args: tuple = (), *, device="cuda") -> list:
 
 
 def _dryrun_rank(mesh, emit: int, chunks_per_device: int, out_path: str) -> dict:
-    """One rank of the dry run: encode its rows, write its segment at its
+    """One process of the dry run: encode its rows, write its segment at its
     global offset, return its shard for the parent's packed check."""
     from ..compression_options import CompressionOptions
     from ..parallel.corpus import chunk_options
+    from ..parallel.mesh import local_chunk_range
     from ..parallel.sharded import assemble_local, make_sharded_encoder
 
     B = mesh.size * chunks_per_device
@@ -121,8 +137,9 @@ def _dryrun_rank(mesh, emit: int, chunks_per_device: int, out_path: str) -> dict
     # The corpus engine's options at this chunk size, so both give one stream.
     step = make_sharded_encoder(mesh, chunk_options(CompressionOptions.default(), emit), emit)
     shard = step(bufs, hist, ns, lasts)
-    payloads = [data[i * emit : i * emit + int(ns[i])] if i // chunks_per_device == mesh.rank
-                else None for i in range(B)]
+    own = local_chunk_range(B, mesh)
+    payloads = [data[i * emit : i * emit + int(ns[i])] if i in own else None
+                for i in range(B)]
     segment, offset = assemble_local(shard, payloads=payloads, is_lasts=lasts, mesh=mesh)
     fd = os.open(out_path, os.O_WRONLY)
     try:
@@ -133,31 +150,40 @@ def _dryrun_rank(mesh, emit: int, chunks_per_device: int, out_path: str) -> dict
 
 
 def dryrun_multichip(n: int, *, emit: int = 65536, chunks_per_device: int = 4,
-                     device="cuda") -> dict:
-    """Run the dry run over ``n`` ranks and check it; returns a summary.
+                     device="cuda", single_process: bool = False,
+                     local_devices: int = 1) -> dict:
+    """Run the dry run over a mesh of ``n`` devices and check it; returns a
+    summary.  ``single_process``: this process drives them all; otherwise
+    ``n / local_devices`` spawned ranks of ``local_devices`` devices each.
     Raises ``RuntimeError`` when a check fails, and ``ValueError`` before
-    any rank starts where the sharded encoder does not take chunks of
-    ``emit`` bytes at Default (``corpus.check_chunk_size``)."""
+    any device is used where the sharded encoder does not take chunks of
+    ``emit`` bytes at Default (``corpus.check_chunk_size``) or the devices
+    do not split over the ranks."""
     from .. import constants as C
     from ..compression_options import CompressionOptions
     from ..ops.compaction import used_words_host
     from ..parallel.corpus import check_chunk_size, compress_corpus
+    from ..parallel.mesh import make_mesh
     from ..parallel.sharded import assemble_host
 
     check_chunk_size(emit, CompressionOptions.default())
-    if torch.device(device).type == "cuda":
-        if torch.cuda.device_count() < n:
-            raise RuntimeError(f"need {n} CUDA devices, have {torch.cuda.device_count()}")
-        from ..runtime import cuda
-
-        cuda.load_library()  # build once, before the ranks load it
+    if n % local_devices:
+        raise ValueError(f"{n} devices do not split into ranks of {local_devices}")
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"need {n} CUDA devices, have {torch.cuda.device_count()}")
     B = n * chunks_per_device
     data = dryrun_data(emit, B)
     _, _, ns, lasts = build_batch(data, emit)
     fd, out_path = tempfile.mkstemp(prefix="deflate_dryrun_")
     os.close(fd)
     try:
-        shards = spawn_ranks(_dryrun_rank, n, (emit, chunks_per_device, out_path), device=device)
+        if single_process:
+            shards = [_dryrun_rank(make_mesh(n, device=device), emit, chunks_per_device,
+                                   out_path)]
+        else:
+            shards = spawn_ranks(_dryrun_rank, n // local_devices,
+                                 (emit, chunks_per_device, out_path), device=device,
+                                 local_devices=local_devices)
         with open(out_path, "rb") as f:
             written = f.read()
     finally:
@@ -178,7 +204,8 @@ def dryrun_multichip(n: int, *, emit: int = 65536, chunks_per_device: int = 4,
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise RuntimeError(f"dryrun_multichip({n}): failed: {failed}")
-    return {"ranks": n, "chunks": B, "emit": emit, "input_bytes": len(data),
+    return {"devices": n, "processes": len(shards), "chunks": B, "emit": emit,
+            "input_bytes": len(data),
             "aligned_bytes": len(written), "packed_bytes": len(packed),
             "fetched_word_bytes": int(used.sum()) * 4,
             "block_types": sorted({int(b) for b in btype})}
@@ -187,16 +214,26 @@ def dryrun_multichip(n: int, *, emit: int = 65536, chunks_per_device: int = 4,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=None,
-                    help="ranks to spawn (default: the CUDA devices, or 2 on the CPU)")
+                    help="devices of the mesh (default: the CUDA devices, or 2 on the CPU)")
+    ap.add_argument("--single-process", action="store_true",
+                    help="drive every device from this process, with no process group")
+    ap.add_argument("--local-devices", type=int, default=1,
+                    help="devices a spawned rank drives (--ranks / this ranks)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--emit", type=int, default=65536, help="chunk size in bytes")
     a = ap.parse_args(argv)
+    if a.device == "cuda" and not torch.cuda.is_available():
+        print("dryrun_multichip: no CUDA device (pass --device cpu for the CPU)", file=sys.stderr)
+        return 1
     n = a.ranks or (torch.cuda.device_count() if a.device == "cuda" else 2)
-    s = dryrun_multichip(n, emit=a.emit, device=a.device)
+    s = dryrun_multichip(n, emit=a.emit, device=a.device, single_process=a.single_process,
+                         local_devices=a.local_devices)
+    form = ("one process" if a.single_process else
+            f"{s['processes']} ranks of {a.local_devices} device{'s' * (a.local_devices > 1)}")
     print(f"dryrun_multichip({n}): {s['chunks']} chunks x {s['emit']} B on {a.device}, "
           f"{s['input_bytes']} -> {s['aligned_bytes']} B (packed {s['packed_bytes']}), "
           f"compacted fetch {s['fetched_word_bytes']} B, block types {s['block_types']}: "
-          f"the file written by {n} ranks round-trips and equals the one-shot bytes")
+          f"the file written by {form} round-trips and equals the one-shot bytes")
     return 0
 
 

@@ -2,11 +2,12 @@
 
 The torch form of ``scripts/sharded_soak.py``: the corpus goes through the
 sharded encoder (``parallel/sharded.py``) in steps of 32 chunks of 64 KiB,
-over ``--world`` spawned ranks (gloo on the CPU, NCCL on
-CUDA devices, one card a rank).  Each step, every rank assembles its rows
-with ``assemble_local`` and writes the byte-aligned segment at its offset in
-the whole stream (the bytes of the steps before, plus its offset in the
-step) into one shared file, the multi-host pattern.  The last
+over ``--world`` spawned ranks (gloo on the CPU, NCCL on CUDA devices, one
+card a rank) or, with ``--single-process``, over a mesh of ``--world``
+devices that this process drives alone.  Each step, every process assembles
+its rows with ``assemble_local`` and writes the byte-aligned segment at its
+offset in the whole stream (the bytes of the steps before, plus its offset
+in the step) into one shared file, the multi-host pattern.  The last
 step is padded with empty rows, which are dropped.  The parent then checks,
 and exits non-zero on any miss:
 
@@ -14,12 +15,13 @@ and exits non-zero on any miss:
   boundaries, stored and Huffman chunks, padding rows);
 - the chunks' Adler-32 and CRC-32 partials, combined in stream order, equal
   ``zlib``'s;
-- every rank's shards spliced packed equal the one-shot
+- every process's shards spliced packed equal the one-shot
   ``deflate_bytes_conf`` of the corpus at the same preset.
 
-It prints MB/s per world size (the slowest rank's steps and assembly).
+It prints MB/s per world size (the slowest process's steps and assembly).
 
     python3 -m deflate_rs_tpu_torch.tools.sharded_soak --mb 512 --world 1 2 4
+    python3 -m deflate_rs_tpu_torch.tools.sharded_soak --mb 1024 --world 4 --single-process
     python3 -m deflate_rs_tpu_torch.tools.sharded_soak --mb 4 --world 2 4 --device cpu
 
 The corpus follows ``scripts/sharded_soak.py``'s recipe with files of the
@@ -33,6 +35,7 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import sys
 import tempfile
 import time
 import zlib
@@ -94,7 +97,7 @@ def step_batch(data: bytes, g0: int, rows: int):
 
 
 def _soak_rank(mesh, total: int, preset: str, step_chunks: int, out_path: str) -> dict:
-    """One rank: every step of the corpus, its segments written into
+    """One process: every step of the corpus, its segments written into
     ``out_path``; returns its shards (rows numbered over the whole corpus)
     and its seconds."""
     from ..compression_options import CompressionOptions
@@ -126,29 +129,33 @@ def _soak_rank(mesh, total: int, preset: str, step_chunks: int, out_path: str) -
 
 
 def soak(total: int, *, preset: str = "default", world: int = 1, device="cuda",
-         step_chunks: int = STEP_CHUNKS) -> dict:
-    """Run the soak over ``world`` ranks and check it; returns a summary.
-    Raises ``RuntimeError`` when a check fails."""
+         step_chunks: int = STEP_CHUNKS, single_process: bool = False,
+         one_shot: bytes | None = None) -> dict:
+    """Run the soak over ``world`` ranks, or over a mesh of ``world`` devices
+    in this process (``single_process``), and check it; returns a summary.
+    ``one_shot``, where given, is the corpus's ``deflate_bytes_conf`` at
+    ``preset`` (it saves computing it again).  Raises ``RuntimeError`` when
+    a check fails."""
     from .. import deflate_bytes_conf
     from ..compression_options import CompressionOptions
     from ..ops import checksum as ck
+    from ..parallel.mesh import make_mesh
     from ..parallel.sharded import assemble_host
 
     if step_chunks % world:
-        raise ValueError(f"a step of {step_chunks} chunks does not divide over {world} ranks")
-    if torch.device(device).type == "cuda":
-        if torch.cuda.device_count() < world:
-            raise RuntimeError(f"need {world} CUDA devices, have {torch.cuda.device_count()}")
-        from ..runtime import cuda
-
-        cuda.load_library()  # build once, before the ranks load it
+        raise ValueError(f"a step of {step_chunks} chunks does not divide over {world} devices")
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < world:
+        raise RuntimeError(f"need {world} CUDA devices, have {torch.cuda.device_count()}")
     data = build_corpus(total)
     n = len(data)
     fd, out_path = tempfile.mkstemp(prefix="deflate_soak_")
     os.close(fd)
     try:
-        ranks = spawn_ranks(_soak_rank, world, (total, preset, step_chunks, out_path),
-                            device=device)
+        args = (total, preset, step_chunks, out_path)
+        if single_process:
+            ranks = [_soak_rank(make_mesh(world, device=device), *args)]
+        else:
+            ranks = spawn_ranks(_soak_rank, world, args, device=device)
         with open(out_path, "rb") as f:
             stream = f.read()
     finally:
@@ -167,19 +174,20 @@ def soak(total: int, *, preset: str = "default", world: int = 1, device="cuda",
     packed = assemble_host([dict(s, all_nbytes=all_nbytes) for s in shards], n_chunks,
                            packed=True, payloads=_Chunks(data),
                            is_lasts=np.arange(len(all_nbytes)) == n_chunks - 1)
+    if one_shot is None:
+        one_shot = deflate_bytes_conf(data, getattr(CompressionOptions, preset)(), device=device)
     checks = {
         "stream round-trips through zlib": zlib.decompress(stream, -15) == data,
         "Adler-32 of the partials == zlib's": ck.adler32_value(adler) == zlib.adler32(data),
         "CRC-32 of the partials == zlib's": ck.crc32_from_raw(crc_raw, n) == zlib.crc32(data),
-        "packed splice == one-shot bytes": packed == deflate_bytes_conf(
-            data, getattr(CompressionOptions, preset)(), device=device),
+        "packed splice == one-shot bytes": packed == one_shot,
         "every chunk has its partials": len(btypes) == n_chunks,
     }
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise RuntimeError(f"sharded soak at world size {world}: failed: {failed}")
     seconds = max(r["seconds"] for r in ranks)
-    return {"world": world, "input_bytes": n, "chunks": n_chunks,
+    return {"world": world, "processes": len(ranks), "input_bytes": n, "chunks": n_chunks,
             "steps": -(-n_chunks // step_chunks), "stream_bytes": len(stream),
             "packed_bytes": len(packed), "seconds": seconds, "mb_per_s": n / 1e6 / seconds,
             "block_types": {b: btypes.count(b) for b in sorted(set(btypes))},
@@ -192,16 +200,24 @@ def main(argv=None) -> int:
     ap.add_argument("--mb", type=float, default=512, help="corpus size in MiB")
     ap.add_argument("--preset", default="default",
                     choices=("default", "fast", "high", "rle", "huffman_only", "turbo"))
-    ap.add_argument("--world", type=int, nargs="+", default=[1], help="world sizes to run")
+    ap.add_argument("--world", type=int, nargs="+", default=[1],
+                    help="world sizes to run (devices of the mesh)")
+    ap.add_argument("--single-process", action="store_true",
+                    help="drive the mesh's devices from this process, with no process group")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     a = ap.parse_args(argv)
+    if a.device == "cuda" and not torch.cuda.is_available():
+        print("sharded_soak: no CUDA device (pass --device cpu for the CPU)", file=sys.stderr)
+        return 1
     for world in a.world:
-        s = soak(int(a.mb * (1 << 20)), preset=a.preset, world=world, device=a.device)
-        print(f"sharded_soak: world size {world} on {a.device}, preset {a.preset}: "
+        s = soak(int(a.mb * (1 << 20)), preset=a.preset, world=world, device=a.device,
+                 single_process=a.single_process)
+        form = "one process" if a.single_process else f"{world} ranks"
+        print(f"sharded_soak: world size {world} ({form}) on {a.device}, preset {a.preset}: "
               f"{s['input_bytes']} B in {s['steps']} steps of {STEP_CHUNKS} x {EMIT} B -> "
               f"{s['stream_bytes']} B byte-aligned ({s['packed_bytes']} B packed); round-trips, "
               f"checksums == zlib's, packed == one-shot; {s['mb_per_s']:.2f} MB/s "
-              f"({s['seconds']:.2f} s, slowest rank); block types {s['block_types']}; fetched "
+              f"({s['seconds']:.2f} s, slowest process); block types {s['block_types']}; fetched "
               f"{s['fetched_bytes']} B", flush=True)
     return 0
 

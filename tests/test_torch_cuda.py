@@ -342,3 +342,56 @@ def test_quarter_hist_granule(dev, B, E, nq, seed):
         a, b = form(ls), form(dc)
         _same(hist_kernel.quarter_histograms(a, b, nq),
               hist_kernel.quarter_histograms_plain(a, b, nq))
+
+
+# The sharded encoder's cards: the one-card mesh of a process against the
+# world-size-1 step, and each kernel on the last card from cuda:0.
+
+def test_one_card_mesh_equals_the_world_size_1_step(dev, tmp_path):
+    import torch.distributed as dist
+
+    from deflate_rs_tpu_torch import CompressionOptions
+    from deflate_rs_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from deflate_rs_tpu_torch.parallel.sharded import make_sharded_encoder
+    from deflate_rs_tpu_torch.tools.dryrun_multichip import build_batch, dryrun_data
+
+    batch = build_batch(dryrun_data(65536, 8), 65536)
+    opts = CompressionOptions.default()
+    init_distributed(f"file://{tmp_path}/rendezvous", 1, 0, device="cuda")
+    try:
+        ranked = make_sharded_encoder(make_mesh(device="cuda"), opts, 65536)(*batch)
+    finally:
+        dist.destroy_process_group()
+    mesh = make_mesh(1, device="cuda")
+    assert mesh.group is None and mesh.devices == (torch.device("cuda", 0),)
+    alone = make_sharded_encoder(mesh, opts, 65536)(*batch)
+    assert alone.keys() == ranked.keys()
+    for key in ranked:
+        np.testing.assert_array_equal(alone[key], ranked[key])
+
+
+def test_kernels_on_the_last_card_from_cuda_0(dev):
+    card = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+
+    def on_card(arrays):
+        return [torch.from_numpy(a).to(card) for a in arrays]
+
+    steps, n = on_card(kernel_cases.parse_scan_batch(65536, 32, 0))
+    leaf = on_card([kernel_cases.sorted_leaves(_PM_CASES[0][1])])[0]
+    N, nq = 98304, 8
+    buf, doms = on_card(kernel_cases.lr_measure_batch(32, 64, N, 0))
+    ls, dc = on_card(kernel_cases.hist_batch(33, 65536, 0))
+    fields = on_card(kernel_cases.field_batch(3, 4096, 8, 1))
+    calls = [(parse_scan.parse_scan, parse_scan.parse_scan_plain, (steps, n)),
+             (pm_kernel.lengths_by_rank, pm_kernel.lengths_by_rank_plain,
+              (leaf, _PM_CASES[0][2])),
+             (lr_kernel.lr_measure, lr_kernel.lr_measure_plain, (buf, doms, N)),
+             (hist_kernel.quarter_histograms, hist_kernel.quarter_histograms_plain,
+              (ls, dc, nq)),
+             (field_kernel.token_fields, field_kernel.token_fields_plain, tuple(fields))]
+    for kernel, plain, args in calls:
+        got = kernel(*args)
+        assert torch.cuda.current_device() == 0
+        assert all(g.device == card for g in (got if isinstance(got, tuple) else (got,)))
+        _same(got, plain(*args))

@@ -1,6 +1,7 @@
 """The port's sharded encoder (``parallel/sharded.py``) over spawned gloo
 ranks at world sizes 2 and 4, against the one-shot bytes and against the
-JAX sharded path on its 8-device CPU mesh.
+JAX sharded path on its 8-device CPU mesh; and, in the world-size-2 spawn,
+a mesh of 2 ranks x 2 logical devices against the JAX 4-device mesh.
 
 The eight cases of ``tests/test_sharded.py``: sharded bytes equal the
 one-shot bytes (byte-aligned, with the checksum partials), packed bytes equal
@@ -37,7 +38,8 @@ from deflate_rs_tpu_torch.ops.chunk_encode import out_words  # noqa: E402
 from deflate_rs_tpu_torch.parallel.mesh import is_distributed  # noqa: E402
 from deflate_rs_tpu_torch.parallel.sharded import assemble_host, global_offsets  # noqa: E402
 from deflate_rs_tpu_torch.tools.dryrun_multichip import spawn_ranks  # noqa: E402
-from torch_sharded_ranks import EMIT, batch, case_inputs, sharded_cases  # noqa: E402
+from torch_sharded_ranks import (EMIT, META, MIXED, batch, case_inputs,  # noqa: E402
+                                 jax_mesh_arrays, sharded_cases)
 
 WORLDS = [2, 4]
 CPU = {"device": "cpu"}
@@ -91,6 +93,35 @@ def _jax_sharded(name: str, packed: bool) -> bytes:
 @functools.lru_cache(maxsize=None)
 def _jax_step():
     return jsharded.make_sharded_encoder(jmesh.make_mesh(8), JOptions.default(), EMIT)
+
+
+def test_two_ranks_of_two_devices_equal_the_jax_4_device_mesh():
+    """Array for array: the meta of the 2 x 2 mesh's two shards, in row
+    order, is the JAX 4-device mesh's, and each rank's compacted words are
+    its two devices' used words one after the other; the bytes are the
+    one-shot bytes and the segments tile the stream."""
+    data, _, _, pad = case_inputs()["text"]
+    mixed = [r[MIXED] for r in _ranks(2)]
+    assert [m["mesh"] for m in mixed] == [(4, 0, 2), (4, 1, 2)]
+    (bufs, hist, ns, lasts), B = batch(data, pad, 4)
+    step = jsharded.make_sharded_encoder(jmesh.make_mesh(4), JOptions.default(), EMIT)
+    arrays, words = jax_mesh_arrays(step(bufs, hist.astype(np.int32), ns.astype(np.int32),
+                                         lasts))
+    shards = [m["shard"] for m in mixed]
+    assert [s["row0"] for s in shards] == [0, len(ns) // 2]
+    for key in META:
+        if key == "all_nbytes":
+            for s in shards:
+                np.testing.assert_array_equal(s[key], arrays[key])
+        else:
+            np.testing.assert_array_equal(np.concatenate([s[key] for s in shards]), arrays[key])
+    for rank, s in enumerate(shards):
+        np.testing.assert_array_equal(s["cw"], np.concatenate(words[2 * rank : 2 * rank + 2]))
+    stream = assemble_host(shards, B)
+    assert stream == _one_shot("text", False)
+    assert b"".join(seg for seg, _ in (m["local"] for m in mixed)) == stream
+    assert [off for _, off in (m["local"] for m in mixed)] == [
+        0, int(global_offsets(arrays["all_nbytes"])[len(ns) // 2])]
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -84,7 +84,24 @@ def sharded_cases(mesh) -> dict:
             errors[label] = str(e)
     out["errors"] = errors
     out["rank"], out["size"], out["distributed"] = mesh.rank, mesh.size, is_distributed()
+    if mesh.size == 2:
+        out[MIXED] = mixed_case()
     return out
+
+
+MIXED = "text_2x2"  # the text case over 2 ranks x 2 logical devices
+
+
+def mixed_case() -> dict:
+    """The text case on a mesh of two logical CPU devices a rank: this
+    rank's shard, its segment and offset, and the mesh's form."""
+    mesh = make_mesh(device="cpu", local_devices=2)
+    data, preset, _, pad = case_inputs()["text"]
+    (bufs, hist, ns, lasts), B = batch(data, pad, mesh.size)
+    shard = make_sharded_encoder(mesh, getattr(CompressionOptions, preset)(), EMIT)(
+        bufs, hist, ns, lasts)
+    return {"shard": shard, "local": assemble_local(shard, is_lasts=lasts, n=B, mesh=mesh),
+            "mesh": (mesh.size, mesh.rank, len(mesh.devices))}
 
 
 def emit_case(mesh, data: bytes, emit: int, preset: str) -> dict:
@@ -93,3 +110,28 @@ def emit_case(mesh, data: bytes, emit: int, preset: str) -> dict:
     (bufs, hist, ns, lasts), _ = pad_to_multiple(build_batch(data, emit), mesh.size)
     step = make_sharded_encoder(mesh, getattr(CompressionOptions, preset)(), emit)
     return step(bufs, hist, ns, lasts)
+
+
+META = ("nbytes", "all_nbytes", "btype", "data_bits", "s1", "s2", "crc_raw")
+
+
+def jax_mesh_arrays(out) -> tuple:
+    """A JAX sharded step's output (compact mode) as host arrays: the meta
+    arrays whole, and each JAX device's used words (its head and rest
+    pieces cut to the used prefix), in device order.  Reads the arrays'
+    shards; imports no JAX."""
+    from deflate_rs_tpu_torch.ops.compaction import used_words_host
+
+    arrays = {k: np.asarray(out[k]) for k in META}
+
+    def shards(arr):
+        return [np.asarray(s.data) for s in sorted(arr.addressable_shards,
+                                                   key=lambda s: s.index[0].start or 0)]
+
+    words, row0 = [], 0
+    for bt, head, rest in zip(shards(out["btype"]), shards(out["cw_head"]),
+                              shards(out["cw_rest"])):
+        used = used_words_host(bt, arrays["data_bits"][row0 : row0 + len(bt)])
+        words.append(np.concatenate([head, rest])[: int(used.sum())])
+        row0 += len(bt)
+    return arrays, words
