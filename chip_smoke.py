@@ -116,8 +116,8 @@ Phases (each prints a line; any failure exits non-zero):
    ``tools/scaling_curve.py`` (64 MiB of the mix at 64 KiB chunks, steps of
    256 chunks, step plus packed splice: MB/s of five warm runs, each card's
    peak memory and busy share) at 1, 2, 4 ... cards, in one process from one
-   host thread, with a thread a card, and as one rank a card, plus ranks of
-   two cards over every card; over every card also 512 MiB of the mix at
+   host thread and as one rank a card, plus ranks of two cards over every
+   card; over every card also 512 MiB of the mix at
    32 MiB chunks, fast and Default at 1,024 segments, one chunk a card a
    step, in every form (one warm run timed after one); every stream equal to
    the one-shot ``compress_corpus`` bytes of one card (``SCALING_ROW`` and
@@ -838,7 +838,7 @@ def multi_card_rows(dt, cuda, mix: bytes, smi: str) -> None:
     process whose current device is ``cuda:0``, against its plain version on
     the operands of that card's block of the mesh; then the scaling rows of
     ``tools/scaling_curve.py`` on the 64 MiB mix at 64 KiB chunks (steps of
-    256 chunks) at 1, 2, 4 ... cards in the process, threads and ranks forms,
+    256 chunks) at 1, 2, 4 ... cards in the process and ranks forms,
     and, over every card, the same and 512 MiB of the mix at 32 MiB chunks
     (fast, and Default at 1,024 segments; one chunk a card a step; one warm
     run timed after one) in every form and as ranks of two cards: every
@@ -899,7 +899,7 @@ def multi_card_rows(dt, cuda, mix: bytes, smi: str) -> None:
     torch.cuda.empty_cache()
     print(f"scaling: one-shot references on cuda:0 in {time.perf_counter() - t0:.1f} s")
     counts = [m for m in (1, 2, 4, 8, 16) if m <= n]
-    runs = [(form, m, {}) for m in counts for form in sc.FORMS if (form, m) != ("threads", 1)]
+    runs = [(form, m, {}) for m in counts for form in sc.FORMS]
     if n >= 4 and n % 2 == 0:
         runs.append(("ranks", n, {"local_devices": 2}))
     summary = {}

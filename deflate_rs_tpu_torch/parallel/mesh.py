@@ -50,7 +50,8 @@ class Mesh:
 
 
 def init_distributed(init_method: str | None = None, world_size: int | None = None,
-                     rank: int | None = None, *, device="cuda") -> None:
+                     rank: int | None = None, *, device="cuda",
+                     local_devices: int = 1) -> None:
     """Join (or start) a process group of ``world_size`` ranks.
 
     A thin wrapper over ``torch.distributed.init_process_group``: NCCL for a
@@ -58,15 +59,17 @@ def init_distributed(init_method: str | None = None, world_size: int | None = No
     environment (``env://`` with ``MASTER_ADDR``/``MASTER_PORT``,
     ``WORLD_SIZE``, ``RANK``).  ``init_method="file:///path"`` rendezvous
     through a file that no other run uses, with no socket.  On CUDA the
-    rank's card (``cuda:<LOCAL_RANK>``, see :func:`make_mesh`) becomes the
-    current device first, so the group's collectives run on it.
+    rank's first card (:func:`rank_card` of ``local_devices`` cards a rank,
+    the card :func:`make_mesh` gives the rank first) becomes the current
+    device first, so the group's collectives run on it.
     """
     rank = int(os.environ["RANK"]) if rank is None else rank
     dev = torch.device(device)
     backend = "gloo"
     if dev.type == "cuda":
         backend = "nccl"
-        torch.cuda.set_device(dev if dev.index is not None else _rank_card(rank))
+        torch.cuda.set_device(dev if dev.index is not None and local_devices == 1
+                              else rank_card(rank, local_devices))
     dist.init_process_group(
         backend,
         init_method=init_method or "env://",
@@ -79,10 +82,11 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
 
 
-def _rank_card(rank: int, per_rank: int = 1) -> torch.device:
-    """The first of a rank's ``per_rank`` cards: ``LOCAL_RANK`` (torchrun's
-    variable; the rank when unset) times ``per_rank``; one card a rank wraps
-    around the cards this process sees."""
+def rank_card(rank: int, per_rank: int = 1) -> torch.device:
+    """The first of a rank's ``per_rank`` cards, the one place that picks
+    it: ``LOCAL_RANK`` (torchrun's variable; the rank when unset) times
+    ``per_rank``; one card a rank wraps around the cards this process
+    sees."""
     first = int(os.environ.get("LOCAL_RANK", rank)) * per_rank
     return torch.device("cuda", first % torch.cuda.device_count() if per_rank == 1 else first)
 
@@ -129,14 +133,15 @@ def make_mesh(num_devices: int | None = None, *, device="cuda",
     if dev.type != "cuda":
         devices = (dev,) * per_rank
     else:
-        first = dev if dev.index is not None and per_rank == 1 else _rank_card(rank, per_rank)
+        first = dev if dev.index is not None and per_rank == 1 else rank_card(rank, per_rank)
         if first.index + per_rank > torch.cuda.device_count():
             raise ValueError(f"rank {rank} needs cards {first.index} to "
                              f"{first.index + per_rank - 1}; this process sees "
                              f"{torch.cuda.device_count()}")
         devices = tuple(torch.device("cuda", first.index + i) for i in range(per_rank))
         # The group's collectives run on the rank's first card; bind it before
-        # the first one (init_distributed bound LOCAL_RANK's card).
+        # the first one (init_distributed(local_devices=k) bound the same card;
+        # a group formed without it is bound here).
         torch.cuda.set_device(devices[0])
     counts = [None] * world
     dist.all_gather_object(counts, per_rank)

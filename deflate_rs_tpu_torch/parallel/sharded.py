@@ -19,8 +19,7 @@ One step, on every device of the mesh at once:
 
 Every device's encode and compaction is queued before the first fetch, the
 stages of ``ChunkEncoder.forward`` in turns over the devices, so the devices
-run at once; ``threads=True`` gives every device a host thread of its own
-instead (its whole step, fetch included).
+run at once from one host thread.
 
 A step's output is this process's shard: a dict of host arrays.  Assembly is
 an ordered host-side splice (``models/assembly.py``, the native bit
@@ -36,7 +35,6 @@ marker after every chunk but the last, bytes of
 from __future__ import annotations
 
 import contextlib
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -72,7 +70,7 @@ def _on(device: torch.device):
 
 
 def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int, *,
-                         compact: bool = True, threads: bool = False):
+                         compact: bool = True):
     """Build the sharded encode step of this process.
 
     Returns ``fn(bufs, hist_lens, ns, is_lasts)``: the arguments are the
@@ -95,7 +93,6 @@ def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int
 
     ``emit_size`` must be a chunk size the corpus engine takes at ``options``
     (``corpus.check_chunk_size``); anything else raises ``ValueError`` here.
-    ``threads=True`` drives each device from a host thread of its own.
     """
     check_chunk_size(emit_size, options)
     # One encoder a distinct device (the logical CPU devices share one).
@@ -137,14 +134,6 @@ def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int
             words = words[: int(used_words_host(meta[1], meta[2]).sum())]
         return meta, words.cpu().numpy().view(np.uint32)
 
-    def one_device(k: int, block) -> tuple:
-        """Device k's whole step, from a host thread of its own."""
-        with torch.no_grad():
-            state = upload(k, block)
-            for name in ChunkEncoder.STAGES:
-                state = stage(k, name, state)
-            return fetch(*finish(k, state))
-
     def step(bufs, hist_lens, ns, is_lasts) -> dict:
         B = len(ns)
         if B % mesh.size:
@@ -155,19 +144,15 @@ def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int
         host = [np.asarray(a)[rows.start : rows.stop] for a in (bufs, hist_lens, ns, is_lasts)]
         blocks = [[a[k * per : (k + 1) * per] for a in host] for k in range(len(mesh.devices))]
         cards = range(len(blocks))
-        if threads and len(blocks) > 1:
-            with ThreadPoolExecutor(len(blocks)) as pool:
-                got = list(pool.map(one_device, cards, blocks))
-        else:
-            with torch.no_grad():
-                # The stages in turns over the devices: a device's launch
-                # queue holds about a thousand kernels, and the host blocks
-                # on a full one, so one device's whole forward would hold
-                # the next device back until it is nearly done.
-                states = [upload(k, block) for k, block in zip(cards, blocks)]
-                for name in ChunkEncoder.STAGES:
-                    states = [stage(k, name, state) for k, state in zip(cards, states)]
-                got = [fetch(*one) for one in [finish(k, st) for k, st in zip(cards, states)]]
+        with torch.no_grad():
+            # The stages in turns over the devices: a device's launch queue
+            # holds about a thousand kernels, and the host blocks on a full
+            # one, so one device's whole forward would hold the next device
+            # back until it is nearly done.
+            states = [upload(k, block) for k, block in zip(cards, blocks)]
+            for name in ChunkEncoder.STAGES:
+                states = [stage(k, name, state) for k, state in zip(cards, states)]
+            got = [fetch(*one) for one in [finish(k, st) for k, st in zip(cards, states)]]
         meta = np.concatenate([m for m, _ in got], axis=1)
         shard = {"row0": rows.start, "all_nbytes": _all_gather(meta[0], mesh)}
         shard.update(zip(_META, meta))

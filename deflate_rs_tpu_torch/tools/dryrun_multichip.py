@@ -88,7 +88,8 @@ def _rank_entry(rank: int, world: int, init_file: str, device: str, local_device
 
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)  # ranks share the machine's cores
-    init_distributed(f"file://{init_file}", world, rank, device=device)
+    init_distributed(f"file://{init_file}", world, rank, device=device,
+                     local_devices=local_devices)
     try:
         result = fn(make_mesh(device=device, local_devices=local_devices), *args)
     finally:

@@ -9,7 +9,6 @@ run.  Forms of the mesh of ``n`` devices:
 
 - ``process``: one process drives the ``n`` devices from one host thread
   (every device's encode is launched before the first fetch);
-- ``threads``: one process, a host thread for each device;
 - ``ranks``: ``n`` spawned ranks of one device each (NCCL; gloo on the
   CPU); the shards go to rank 0 by ``gather_object`` and rank 0 splices.
 
@@ -42,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-FORMS = ("process", "threads", "ranks")
+FORMS = ("process", "ranks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +105,7 @@ def _busy_shares(prof, mesh, wall_s: float) -> list:
     return [_busy_us(spans.get(d.index, [])) / 1e6 / wall_s for d in mesh.devices]
 
 
-def run_spec(mesh, spec: Spec, threads: bool = False) -> dict:
+def run_spec(mesh, spec: Spec) -> dict:
     """This process's part of the runs of ``spec`` on ``mesh``: its walls (of
     rank 0 where there are ranks), its cards' peaks and busy shares, and on
     rank 0 the packed stream's length and sha256."""
@@ -114,7 +113,7 @@ def run_spec(mesh, spec: Spec, threads: bool = False) -> dict:
     from .dryrun_multichip import build_batch
 
     data = spec.data()
-    step = make_sharded_encoder(mesh, spec.options(), spec.emit, threads=threads)
+    step = make_sharded_encoder(mesh, spec.options(), spec.emit)
     bufs, hist, ns, lasts = build_batch(data, spec.emit)
     n_chunks = len(ns)
     if n_chunks % spec.step or spec.step % mesh.size:
@@ -191,7 +190,7 @@ def run_form(form: str, n: int, specs, *, device="cuda", local_devices: int = 1)
         raise ValueError(f"form {form!r} is none of {FORMS}")
     if form != "ranks":
         mesh = make_mesh(n, device=device)
-        return [dict(run_spec(mesh, s, threads=form == "threads"), processes=1) for s in specs]
+        return [dict(run_spec(mesh, s), processes=1) for s in specs]
     if n % local_devices:
         raise ValueError(f"{n} devices do not split into ranks of {local_devices}")
     ranks = spawn_ranks(_rank_specs, n // local_devices, (tuple(specs),), device=device,
@@ -248,8 +247,6 @@ def curve(devices, forms, spec: Spec, *, device="cuda", card: str | None = None)
     want = one_shot(spec, device)
     for n in devices:
         for form in forms:
-            if form == "threads" and n == 1:
-                continue  # one device: the process form
             (res,) = run_form(form, n, [spec], device=device)
             yield row(form, n, spec, res, want, card)
 

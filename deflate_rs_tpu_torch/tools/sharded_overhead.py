@@ -5,11 +5,9 @@ on the card, gloo on the CPU) the sharded step of ``parallel/sharded.py``
 (``make_sharded_encoder``) pays everything the multi-card path adds to the
 plain ``ChunkEncoder`` call: the device checksum partials, the size
 all-gather (one rank: a copy), the used-prefix compaction and the fetch of
-the meta and the compacted words.  ``--single-process`` takes the mesh of
-one process with no process group (no all-gather), and ``--devices N``
-spreads the step over N devices of the process (the plain encoder stays on
-the first).  On the first ``--batch`` chunks of the
-16 MiB mix (``utils/mix.py``), in one process and in turns, it times per
+the meta and the compacted words.  ``--single-process`` takes the one-card
+mesh of a process with no process group (no all-gather).  On the first
+``--batch`` chunks of the 16 MiB mix (``utils/mix.py``), in one process and in turns, it times per
 chunk (host clock between two synchronisations, median of ``--iters``
 rounds after a warm one):
 
@@ -26,7 +24,7 @@ encoder's, or the tool fails.  On the CPU the times are the host's
 
     python3 -m deflate_rs_tpu_torch.tools.sharded_overhead [--batch 16 64] [--iters 16]
     python3 -m deflate_rs_tpu_torch.tools.sharded_overhead --device cpu --batch 2 --emit 4096
-    python3 -m deflate_rs_tpu_torch.tools.sharded_overhead --single-process --devices 4
+    python3 -m deflate_rs_tpu_torch.tools.sharded_overhead --single-process
 """
 
 from __future__ import annotations
@@ -60,11 +58,11 @@ def _same_words(shard: dict, plain: dict) -> bool:
 
 
 def overhead(batch: int, emit: int = 65536, *, iters: int = 16, device="cuda",
-             data: bytes | None = None, card: str | None = None, devices: int = 1) -> dict:
-    """The four times and the overhead at one batch, the step over
-    ``devices`` devices of this process: in an initialised process group of
-    one rank (``parallel.mesh.init_distributed``), or in this process alone
-    where none is initialised."""
+             data: bytes | None = None, card: str | None = None) -> dict:
+    """The four times and the overhead at one batch, the step on one
+    device: in an initialised process group of one rank
+    (``parallel.mesh.init_distributed``), or in this process alone where
+    none is initialised."""
     from ..compression_options import CompressionOptions
     from ..ops.chunk_encode import ChunkEncoder
     from ..parallel.mesh import make_mesh
@@ -75,8 +73,7 @@ def overhead(batch: int, emit: int = 65536, *, iters: int = 16, device="cuda",
     grouped = dist.is_available() and dist.is_initialized()
     if grouped and dist.get_world_size() != 1:
         raise ValueError(f"sharded_overhead runs at world size 1, not {dist.get_world_size()}")
-    mesh = (make_mesh(device=device, local_devices=devices) if grouped
-            else make_mesh(devices, device=device))
+    mesh = make_mesh(device=device) if grouped else make_mesh(1, device=device)
     dev = mesh.device
     on_card = dev.type == "cuda"
     opts = CompressionOptions.default()
@@ -90,8 +87,7 @@ def overhead(batch: int, emit: int = 65536, *, iters: int = 16, device="cuda",
 
     def sync():
         if on_card:
-            for d in mesh.devices:
-                torch.cuda.synchronize(d)
+            torch.cuda.synchronize(dev)
 
     things = {
         "floor": lambda: x0 + 1,
@@ -114,10 +110,9 @@ def overhead(batch: int, emit: int = 65536, *, iters: int = 16, device="cuda",
                 ms[name].append(1e3 * (time.perf_counter() - t0) / batch)
     per_chunk = {name: statistics.median(v) for name, v in ms.items()}
     p, f, s = per_chunk["plain"], per_chunk["floor"], per_chunk["sharded"]
-    row = {"batch": batch, "emit": emit, "world": 1, "devices": mesh.size,
+    row = {"batch": batch, "emit": emit, "world": 1,
            "backend": dist.get_backend() if grouped else None,
-           "device": ", ".join(str(d) for d in mesh.devices), "iters": iters,
-           "words_equal": True,
+           "device": str(dev), "iters": iters, "words_equal": True,
            "overhead_ms_per_chunk": s - p, "overhead": (s - p) / max(p - f, 1e-9)}
     if on_card:
         row.update(card=card or card_name(), ms_per_chunk=per_chunk)
@@ -132,7 +127,6 @@ def main(argv=None) -> int:
     ap.add_argument("--emit", type=int, default=65536)
     ap.add_argument("--iters", type=int, default=16)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--devices", type=int, default=1, help="devices the step runs on")
     ap.add_argument("--single-process", action="store_true",
                     help="no process group: the mesh of this process alone")
     a = ap.parse_args(argv)
@@ -143,8 +137,7 @@ def main(argv=None) -> int:
 
     def rows():
         for b in a.batch:
-            print(json.dumps(overhead(b, a.emit, iters=a.iters, device=a.device,
-                                      devices=a.devices)), flush=True)
+            print(json.dumps(overhead(b, a.emit, iters=a.iters, device=a.device)), flush=True)
 
     if a.single_process:
         rows()

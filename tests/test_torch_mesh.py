@@ -4,13 +4,16 @@
 ``make_mesh(n, device="cpu")`` gives ``n`` logical devices, the counterpart
 of the JAX tests' ``--xla_force_host_platform_device_count=8``: the step
 splits the batch's rows into one contiguous block a device.  At 1, 2, 4 and
-8 devices the packed and byte-aligned splices equal the one-shot bytes; at 8
-the outputs equal the JAX 8-device mesh's array for array; a thread a
-device gives the same shard.  An indivisible batch and a mesh of more cards
-than exist raise ``ValueError``.  Then one small CPU case of each tool's
-single-process form: ``tools/dryrun_multichip.py``, ``tools/sharded_soak.py``,
-``tools/sharded_overhead.py`` and ``tools/scaling_curve.py``.  Chunks of 4 KiB
-keep it quick.  Tolerance: exact equality throughout.
+8 devices the packed and byte-aligned splices equal the one-shot bytes and
+every device count gives the one-device shard (the JAX 8-device mesh is held
+array for array in ``tests/test_torch_sharded.py``, which compiles that JAX
+step once for both files' cases).  An indivisible batch and a mesh of more
+cards than exist raise ``ValueError``; a rank of a process group picks its
+first card in one place, and ``init_distributed`` binds that card.  Then one
+small CPU case of each tool's single-process form:
+``tools/dryrun_multichip.py``, ``tools/sharded_soak.py``,
+``tools/sharded_overhead.py`` and ``tools/scaling_curve.py``.  Chunks of
+4 KiB keep it quick.  Tolerance: exact equality throughout.
 """
 
 import functools
@@ -20,22 +23,19 @@ import zlib
 import numpy as np
 import pytest
 
-pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import deflate_rs_tpu_torch as dt  # noqa: E402
-from deflate_rs_tpu import CompressionOptions as JOptions  # noqa: E402
-from deflate_rs_tpu.parallel import mesh as jmesh  # noqa: E402
-from deflate_rs_tpu.parallel import sharded as jsharded  # noqa: E402
 from deflate_rs_tpu_torch.models import deflate as tdeflate  # noqa: E402
+from deflate_rs_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from deflate_rs_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402
 from deflate_rs_tpu_torch.parallel.sharded import (assemble_host, assemble_local,  # noqa: E402
                                                    make_sharded_encoder)
 from deflate_rs_tpu_torch.tools import dryrun_multichip, scaling_curve  # noqa: E402
 from deflate_rs_tpu_torch.tools import sharded_overhead, sharded_soak  # noqa: E402
 from deflate_rs_tpu_torch.utils.mix import pg11  # noqa: E402
-from torch_sharded_ranks import EMIT, META, batch, jax_mesh_arrays  # noqa: E402
+from torch_sharded_ranks import EMIT, batch  # noqa: E402
 
 SIZES = [1, 2, 4, 8]
 ROWS = 8  # seven chunks and one padding row: one row a device at 8
@@ -51,10 +51,10 @@ def _batch():
 
 
 @functools.lru_cache(maxsize=None)
-def _shard(n: int, threads: bool = False) -> dict:
+def _shard(n: int) -> dict:
     (bufs, hist, ns, lasts), _ = _batch()
     step = make_sharded_encoder(make_mesh(n, device="cpu"), dt.CompressionOptions.default(),
-                                EMIT, threads=threads)
+                                EMIT)
     return step(bufs, hist, ns, lasts)
 
 
@@ -91,25 +91,6 @@ def test_mesh_splices_equal_the_one_shot_bytes(n):
         np.testing.assert_array_equal(shard[key], _shard(1)[key])
 
 
-def test_eight_devices_equal_the_jax_8_device_mesh():
-    (bufs, hist, ns, lasts), _ = _batch()
-    step = jsharded.make_sharded_encoder(jmesh.make_mesh(8), JOptions.default(), EMIT)
-    arrays, words = jax_mesh_arrays(step(bufs, hist.astype(np.int32), ns.astype(np.int32),
-                                         lasts))
-    shard = _shard(8)
-    for key in META:
-        np.testing.assert_array_equal(shard[key], arrays[key])
-    assert len(words) == 8
-    np.testing.assert_array_equal(shard["cw"], np.concatenate(words))
-
-
-def test_a_thread_a_device_gives_the_same_shard():
-    shard, threaded = _shard(4), _shard(4, threads=True)
-    assert shard.keys() == threaded.keys()
-    for key in shard:
-        np.testing.assert_array_equal(shard[key], threaded[key])
-
-
 def test_an_indivisible_batch_raises():
     (bufs, hist, ns, lasts), _ = _batch()
     step = make_sharded_encoder(make_mesh(4, device="cpu"), dt.CompressionOptions.default(),
@@ -137,6 +118,23 @@ def test_mesh_device_stays_the_first_device():
     assert cards.device == torch.device("cuda", 1)
 
 
+@pytest.mark.parametrize("local_rank, per_rank, card", [(0, 2, 0), (1, 2, 2), (3, 2, 6),
+                                                        (1, 4, 4)])
+def test_a_rank_binds_its_first_card_before_the_group_forms(monkeypatch, local_rank,
+                                                             per_rank, card):
+    """``init_distributed(local_devices=k)`` makes ``LOCAL_RANK * k`` current
+    before ``init_process_group``, the card ``make_mesh`` gives the rank
+    first (``rank_card``); no other rank's card is bound on the way."""
+    calls = []
+    monkeypatch.setenv("LOCAL_RANK", str(local_rank))
+    monkeypatch.setattr(tmesh.torch.cuda, "set_device", lambda d: calls.append(("bind", d)))
+    monkeypatch.setattr(tmesh.dist, "init_process_group",
+                        lambda backend, **kw: calls.append(("group", backend, kw["rank"])))
+    tmesh.init_distributed("file:///nowhere", 8, 5, device="cuda", local_devices=per_rank)
+    assert calls == [("bind", torch.device("cuda", card)), ("group", "nccl", 5)]
+    assert tmesh.rank_card(5, per_rank) == torch.device("cuda", card)
+
+
 def test_dryrun_single_process(capsys):
     assert dryrun_multichip.main(["--ranks", "2", "--single-process", "--device", "cpu",
                                   "--emit", "4096"]) == 0
@@ -154,26 +152,17 @@ def test_soak_single_process():
 
 def test_overhead_single_process(capsys):
     assert sharded_overhead.main(["--device", "cpu", "--batch", "2", "--emit", "4096",
-                                  "--iters", "1", "--single-process", "--devices", "2"]) == 0
+                                  "--iters", "1", "--single-process"]) == 0
     r = json.loads(capsys.readouterr().out)
-    assert r["words_equal"] and (r["devices"], r["backend"]) == (2, None)
+    assert r["words_equal"] and (r["device"], r["backend"]) == ("cpu", None)
     assert "cpu_ms_per_chunk" in r and "ms_per_chunk" not in r
 
 
 def test_scaling_curve_on_the_cpu(capsys):
     assert scaling_curve.main(["--device", "cpu", "--devices", "2", "--forms", "process",
-                               "threads", "--mb", "0.03125", "--emit", "4096", "--step", "8",
+                               "--mb", "0.03125", "--emit", "4096", "--step", "8",
                                "--runs", "1", "--preset", "fast"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    assert [(r["form"], r["devices"], r["processes"]) for r in rows] == [
-        ("process", 2, 1), ("threads", 2, 1)]
+    assert [(r["form"], r["devices"], r["processes"]) for r in rows] == [("process", 2, 1)]
     assert all(r["equal_one_shot"] and r["cpu_mb_per_s_median"] > 0 for r in rows)
     assert not any("busy_share" in r or "mb_per_s" in r for r in rows)  # no device metric
-
-
-def test_launch_queue_needs_a_card():
-    from deflate_rs_tpu_torch.tools import launch_queue
-
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    assert launch_queue.main([]) == 1

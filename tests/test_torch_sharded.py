@@ -1,7 +1,8 @@
 """The port's sharded encoder (``parallel/sharded.py``) over spawned gloo
 ranks at world sizes 2 and 4, against the one-shot bytes and against the
-JAX sharded path on its 8-device CPU mesh; and, in the world-size-2 spawn,
-a mesh of 2 ranks x 2 logical devices against the JAX 4-device mesh.
+JAX sharded path on its 8-device CPU mesh; and, against that mesh's arrays,
+one process's mesh of 8 logical CPU devices and, in the world-size-2 spawn,
+a mesh of 2 ranks x 2 logical devices.
 
 The eight cases of ``tests/test_sharded.py``: sharded bytes equal the
 one-shot bytes (byte-aligned, with the checksum partials), packed bytes equal
@@ -9,8 +10,12 @@ the one-shot packed bytes, ``assemble_local`` segments tile the stream,
 stored chunks need their payloads, outputs stay per rank and offsets tile,
 offsets past 2 GiB, one compaction rule, the fetch volume on mixed content;
 and the uncompacted word rows.  Ranks are spawned once per world size
-(``tests/torch_sharded_ranks.py`` runs every case); each JAX reference is
-computed once per module.  Tolerance: exact equality.
+(``tests/torch_sharded_ranks.py`` runs every case); the JAX 8-device step
+is compiled once per module and each JAX reference computed once.  A JAX
+mesh's per-chunk arrays do not depend on its device count, and a device's
+used words are its rows' words in row order, so the 8-device mesh's arrays
+hold the 4-device mesh's too (its device k's words are the 8-device mesh's
+devices 2k and 2k + 1, one after the other).  Tolerance: exact equality.
 """
 
 import functools
@@ -35,8 +40,9 @@ from deflate_rs_tpu_torch.models import deflate as tdeflate  # noqa: E402
 from deflate_rs_tpu_torch.ops import checksum as ck  # noqa: E402
 from deflate_rs_tpu_torch.ops import compaction as tcompaction  # noqa: E402
 from deflate_rs_tpu_torch.ops.chunk_encode import out_words  # noqa: E402
-from deflate_rs_tpu_torch.parallel.mesh import is_distributed  # noqa: E402
-from deflate_rs_tpu_torch.parallel.sharded import assemble_host, global_offsets  # noqa: E402
+from deflate_rs_tpu_torch.parallel.mesh import is_distributed, make_mesh  # noqa: E402
+from deflate_rs_tpu_torch.parallel.sharded import (assemble_host, global_offsets,  # noqa: E402
+                                                   make_sharded_encoder)
 from deflate_rs_tpu_torch.tools.dryrun_multichip import spawn_ranks  # noqa: E402
 from torch_sharded_ranks import (EMIT, META, MIXED, batch, case_inputs,  # noqa: E402
                                  jax_mesh_arrays, sharded_cases)
@@ -80,14 +86,20 @@ def _one_shot(name: str, packed: bool) -> bytes:
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_out(name: str):
+    """The JAX sharded step's output on its 8-device CPU mesh."""
+    data, _, _, pad = case_inputs()[name]
+    (bufs, hist, ns, lasts), _ = batch(data, pad, 8)
+    return _jax_step()(bufs, hist.astype(np.int32), ns.astype(np.int32), lasts)
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_sharded(name: str, packed: bool) -> bytes:
     """The JAX sharded path's bytes on its 8-device CPU mesh."""
     data, _, _, pad = case_inputs()[name]
-    (bufs, hist, ns, lasts), B = batch(data, pad, 8)
-    step = _jax_step()
-    out = step(bufs, hist.astype(np.int32), ns.astype(np.int32), lasts)
-    return jsharded.assemble_host(out, B, packed=packed, payloads=_payloads(data, ns, B),
-                                  is_lasts=lasts[:B])
+    (_, _, ns, lasts), B = batch(data, pad, 8)
+    return jsharded.assemble_host(_jax_out(name), B, packed=packed,
+                                  payloads=_payloads(data, ns, B), is_lasts=lasts[:B])
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,18 +107,38 @@ def _jax_step():
     return jsharded.make_sharded_encoder(jmesh.make_mesh(8), JOptions.default(), EMIT)
 
 
+def test_eight_devices_equal_the_jax_8_device_mesh():
+    """One process's mesh of 8 logical CPU devices, no process group, on
+    the text case (four rows a device): its shard's meta is the JAX
+    8-device mesh's array for array, and its compacted words are the eight
+    JAX devices' used words one after the other."""
+    data, _, _, pad = case_inputs()["text"]
+    (bufs, hist, ns, lasts), B = batch(data, pad, 8)
+    mesh = make_mesh(8, device="cpu")
+    assert (mesh.size, mesh.group) == (8, None)
+    shard = make_sharded_encoder(mesh, dt.CompressionOptions.default(), EMIT)(
+        bufs, hist, ns, lasts)
+    arrays, words = jax_mesh_arrays(_jax_out("text"))
+    assert shard["row0"] == 0 and len(words) == 8
+    for key in META:
+        np.testing.assert_array_equal(shard[key], arrays[key])
+    np.testing.assert_array_equal(shard["cw"], np.concatenate(words))
+    assert assemble_host(shard, B) == _one_shot("text", False)
+
+
 def test_two_ranks_of_two_devices_equal_the_jax_4_device_mesh():
     """Array for array: the meta of the 2 x 2 mesh's two shards, in row
-    order, is the JAX 4-device mesh's, and each rank's compacted words are
-    its two devices' used words one after the other; the bytes are the
-    one-shot bytes and the segments tile the stream."""
+    order, is the JAX mesh's, and each rank's compacted words are its two
+    devices' used words one after the other: the JAX 4-device mesh's
+    devices 2r and 2r + 1, which are the 8-device mesh's devices 4r to
+    4r + 3 (see the module docstring); the bytes are the one-shot bytes and
+    the segments tile the stream."""
     data, _, _, pad = case_inputs()["text"]
     mixed = [r[MIXED] for r in _ranks(2)]
     assert [m["mesh"] for m in mixed] == [(4, 0, 2), (4, 1, 2)]
     (bufs, hist, ns, lasts), B = batch(data, pad, 4)
-    step = jsharded.make_sharded_encoder(jmesh.make_mesh(4), JOptions.default(), EMIT)
-    arrays, words = jax_mesh_arrays(step(bufs, hist.astype(np.int32), ns.astype(np.int32),
-                                         lasts))
+    assert len(ns) == len(batch(data, pad, 8)[0][2])  # the 8-device mesh's rows
+    arrays, words = jax_mesh_arrays(_jax_out("text"))
     shards = [m["shard"] for m in mixed]
     assert [s["row0"] for s in shards] == [0, len(ns) // 2]
     for key in META:
@@ -116,7 +148,7 @@ def test_two_ranks_of_two_devices_equal_the_jax_4_device_mesh():
         else:
             np.testing.assert_array_equal(np.concatenate([s[key] for s in shards]), arrays[key])
     for rank, s in enumerate(shards):
-        np.testing.assert_array_equal(s["cw"], np.concatenate(words[2 * rank : 2 * rank + 2]))
+        np.testing.assert_array_equal(s["cw"], np.concatenate(words[4 * rank : 4 * rank + 4]))
     stream = assemble_host(shards, B)
     assert stream == _one_shot("text", False)
     assert b"".join(seg for seg, _ in (m["local"] for m in mixed)) == stream
