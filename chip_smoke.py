@@ -149,10 +149,11 @@ Phases (each prints a line; any failure exits non-zero):
    chunks of the mix and Default at one chunk: each stage of
    ``ChunkEncoder.forward`` on the real outputs of the stages before it, its
    wall time, its busy time under ``torch.profiler``, its kernels and its
-   three longest kernels, then the whole ``forward``.  The stages' kernels
-   must sum to the ``forward``'s within 1 % and their busy time to its own
-   within 10 %; every kernel's launch counter must move.  Each run's rows
-   are printed whole on a ``STAGE_ROWS`` line.
+   three longest kernels, then the whole ``forward`` (all the device work
+   of the traced call, read from a range of its own around it).  The
+   stages' kernels must sum to the ``forward``'s within 1 % and their busy
+   time to its own within 10 %; every kernel's launch counter must move.
+   Each run's rows are printed whole on a ``STAGE_ROWS`` line.
 14. fuzz: ``tools/fuzz.py`` at seed 0, 100 mutants at Default and fast
    (10 inputs held to the CPU port's bytes) and 25 at high, rle and
    huffman_only (5 held), each input round-tripping through ``zlib`` and the
@@ -1157,7 +1158,8 @@ def stages_phase(cuda, mix: bytes, smi: str) -> dict:
         print(f"stages: {preset} B={batch} forward: wall {whole['wall_ms']:.3f} ms, busy "
               f"{whole['busy_ms']:.3f} ms, {whole['kernels']} kernels, {whole['copies']} copies; "
               f"the stages sum to wall {summed['wall_ms']:.3f} ms, busy {summed['busy_ms']:.3f} "
-              f"ms, {summed['kernels']} kernels; profiler traces taken {whole['traces']}")
+              f"ms, {summed['kernels']} kernels; host {whole['host_ms']:.3f} ms, idle gaps "
+              f"{whole['gap_ms']:.3f} ms")
         if abs(summed["kernels"] - whole["kernels"]) > 0.01 * whole["kernels"]:
             raise SystemExit(f"stages: {preset} B={batch}: the stages launch {summed['kernels']} "
                              f"kernels, forward {whole['kernels']}: more than 1 % apart")

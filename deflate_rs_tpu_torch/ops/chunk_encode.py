@@ -27,6 +27,7 @@ from torch import nn
 
 from .. import constants as C
 from ..compression_options import CompressionOptions, SpecialOptions
+from ..runtime.trace import span
 from .bitpack import pack_fields
 from .canonical import canonical_codes
 from .checksum import CRC_TABLE, adler32_parts_device, crc32_raw_device, shift_byte_tables
@@ -212,8 +213,17 @@ class ChunkEncoder(nn.Module):
     # dynamic-header pieces as a dict of their own) and returns it with its
     # own outputs added, so a caller can run one stage alone on the real
     # outputs of the stages before it (``tools/stage_timing.py`` does).
+    # ``run_stage`` runs one inside its profiler range.
     STAGES = ("lz77", "long_range", "parse", "symbols", "histograms", "scoring", "tables",
               "fields", "pack", "checksums")
+
+    def run_stage(self, name: str, state: dict) -> dict:
+        """The stage ``name`` on ``state``, inside the profiler range
+        ``encoder.<name>`` where the program's switch is on
+        (``runtime/trace.py``).  A stage that does nothing at this
+        configuration opens an empty range."""
+        with span("encoder." + name):
+            return getattr(self, name)(state)
 
     def forward(self, bufs: torch.Tensor, hist_len: torch.Tensor, n: torch.Tensor,
                 is_last: torch.Tensor) -> dict:
@@ -225,7 +235,7 @@ class ChunkEncoder(nn.Module):
         ``s1``, ``s2``, ``crc_raw``."""
         state = self.inputs(bufs, hist_len, n, is_last)
         for name in self.STAGES:
-            state = getattr(self, name)(state)
+            state = self.run_stage(name, state)
         return self.outputs(state)
 
     @staticmethod

@@ -23,7 +23,9 @@ How a batch moves on a CUDA device:
 On the CPU the same steps run one after the other.  With
 ``DEFLATE_TPU_TRACE_CORPUS=1`` the five steps are ``torch.profiler``
 ranges (``corpus.upload``, ``corpus.encode``, ``corpus.meta_fetch``,
-``corpus.words_fetch``, ``corpus.splice``).
+``corpus.words_fetch``, ``corpus.splice``), and the same switch opens the
+chunk encoder's stage ranges inside ``corpus.encode`` (``encoder.lz77`` to
+``encoder.checksums``, one each a batch): ``runtime/trace.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ import collections
 import contextlib
 import dataclasses
 import functools
-import os
 import threading
 
 import numpy as np
@@ -48,6 +49,7 @@ from ..models.gzip_header import GzBuilder
 from ..ops.chunk_encode import HALO, PAD, ChunkEncoder
 from ..ops.compaction import compact_words_device, used_words_device, used_words_host
 from ..runtime import native
+from ..runtime.trace import span
 
 # Chunks per device call and batches in flight, from chip_smoke.py's runs over
 # its 16 MiB mix on an NVIDIA H100 80GB HBM3 (700.00 W), PERF.md section 6:
@@ -190,12 +192,6 @@ def history_tail(history: bytes, device) -> torch.Tensor:
     return torch.from_numpy(tail).to(device)
 
 
-def _trace(name: str):
-    if os.environ.get("DEFLATE_TPU_TRACE_CORPUS") == "1":
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
 class _Slot:
     """Host buffers and device results of one batch in flight.  On a CUDA
     device the buffers are pinned; on the CPU only the staging buffer exists
@@ -256,7 +252,7 @@ class BatchPipeline:
         slot = self.slots[self.submitted % len(self.slots)]
         self.submitted += 1
         nbytes = B * self.E
-        with _trace("corpus.upload"):
+        with span("corpus.upload"):
             stage = slot.stage[:nbytes]
             host = stage.numpy()  # shares the (pinned) memory
             host[: len(payload)] = payload
@@ -269,7 +265,7 @@ class BatchPipeline:
                 compute.wait_stream(self.copy_stream)
             else:
                 payload_d = stage.clone()
-        with _trace("corpus.encode"), torch.no_grad():
+        with span("corpus.encode"), torch.no_grad():
             slot.meta_d, slot.words_d, self.tail = self.encoder(
                 payload_d, self.tail, torch.as_tensor(hist), torch.as_tensor(ns),
                 torch.as_tensor(lasts))
@@ -288,7 +284,7 @@ class BatchPipeline:
         uint8[B, 4 * NW] and ``used`` is None.  The arrays are views of
         buffers that the batch after next ``queue_depth`` submits reuses."""
         slot, B = self.queue.popleft()
-        with _trace("corpus.meta_fetch"):
+        with span("corpus.meta_fetch"):
             if self.cuda:
                 slot.meta_ready.synchronize()
                 meta = slot.meta[:, :B].numpy()
@@ -299,7 +295,7 @@ class BatchPipeline:
             need = int(used.sum())
         else:
             used, need = None, slot.words_d.numel()
-        with _trace("corpus.words_fetch"):
+        with span("corpus.words_fetch"):
             if self.cuda:
                 with torch.cuda.stream(self.fetch_stream):
                     slot.words[:need].copy_(slot.words_d.reshape(-1)[:need], non_blocking=True)
@@ -405,7 +401,7 @@ def compress_corpus(
     def drain_one(pipe):
         group, ns, lasts = inflight.popleft()
         meta, words, used = pipe.fetch_next()
-        with _trace("corpus.splice"):
+        with span("corpus.splice"):
             if packed:
                 woff = np.cumsum(used) - used
                 for i, off in enumerate(group):

@@ -112,7 +112,7 @@ def make_sharded_encoder(mesh: Mesh, options: CompressionOptions, emit_size: int
     def stage(k: int, name: str, state: dict) -> dict:
         """Queue one stage of ``ChunkEncoder.forward`` on device k."""
         with _on(mesh.devices[k]):
-            return getattr(encoders[k], name)(state)
+            return encoders[k].run_stage(name, state)
 
     def finish(k: int, state: dict) -> tuple:
         """Queue device k's meta and its compaction."""

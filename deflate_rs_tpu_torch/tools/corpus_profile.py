@@ -91,10 +91,9 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.events()
-        # The profiler mirrors the host's corpus.* ranges onto the device's
-        # timeline: they are no device work.
-        on_device = [e for e in events
-                     if e.device_type == DeviceType.CUDA and not e.name.startswith("corpus.")]
+        # The program's ranges are host ranges only (runtime/trace.py): every
+        # device event is device work.
+        on_device = [e for e in events if e.device_type == DeviceType.CUDA]
         device = [(e.time_range.start, e.time_range.end) for e in on_device]
         if not device:
             print("corpus_profile: the profiler saw no device activity", file=sys.stderr)

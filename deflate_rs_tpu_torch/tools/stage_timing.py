@@ -9,23 +9,34 @@ beforehand.  On the first ``--batch`` chunks of the 16 MiB mix
 (``utils/mix.py``) it prints one JSON line per stage, then one for the whole
 ``forward``:
 
-- ``wall_ms``: host clock, synchronised before and after, eager (median of
-  ``--reps`` runs after a warm one);
-- ``busy_ms``: the union of the device's kernel, copy and memset intervals
-  under ``torch.profiler``, one window per stage: one trace holds every
-  stage and the ``forward``, each between two marker kernels on the
-  device's timeline (the forward's row gives ``traces``, the traces taken);
-- ``kernels``: device kernels launched (copies and memsets apart);
-- ``top``: the three kernels with the most device time, by name;
+- ``wall_ms``: host clock, synchronised before and after, the stage alone
+  on the real outputs of the stages before it, eager (median of ``--reps``
+  runs after a warm one);
+- from one ``forward`` traced by ``torch.profiler`` with the program's
+  ranges on (``runtime/trace.py``), the device activity that the stage's
+  range ``encoder.<stage>`` launched (``portbench/launches.py``: the
+  activity's CUDA call, then that call's parents on the host):
+  ``busy_ms``, the union of its kernel, copy and memset intervals;
+  ``kernels`` and ``copies``; ``top``, the three kernels with the most
+  device time, by name;
+- from the same trace, ``host_ms``, the host's time in the range, and
+  ``gap_ms``, the device's idle gaps whose midpoint finds the host inside
+  it (the card waiting for the stage's launches), as ``portbench/trace.py``'s
+  ``breakdown`` puts gaps down to host ranges;
 - ``card``: the card's name and power limit.
 
+The ``forward`` row gives the whole ``forward``'s ``wall_ms``, and the same
+numbers for all the activity the traced call launched, read from a range of
+its own (``FORWARD``) around it: its stages' work and its own outside them
+(the inputs' upload, the outputs), so the stages' sums can be held to it.
 The encoder is the one-shot and corpus engines' (no checksum partials).  A
 stage that does nothing at the configuration (``long_range`` without the
 hash matcher's long-range pass, ``checksums``) prints ``"runs": false`` and
-no numbers.  If the profiler sees no device
-activity the tool fails; it prints no zeros.  ``--device cpu`` runs the same
-chain on the CPU and prints only ``cpu_wall_ms``, the host's time, which is
-no device metric.
+no numbers.  If the profiler sees no device activity in a stage that runs,
+the tool fails; it prints no zeros.  ``--device cpu`` runs the same chain
+on the CPU and prints only ``cpu_wall_ms``, the host's time, which is no
+device metric.  The card's mode reads ``portbench`` (``launches``,
+``trace``): run it from the root of the checkout.
 
     python3 -m deflate_rs_tpu_torch.tools.stage_timing [--preset default] [--batch 64] [--emit 65536]
     python3 -m deflate_rs_tpu_torch.tools.stage_timing --emit 4194304  # 16 chunks of 4 MiB
@@ -36,9 +47,10 @@ no device metric.
 from __future__ import annotations
 
 import argparse
-import bisect
+import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -46,9 +58,11 @@ import time
 
 import torch
 
-from .corpus_profile import _busy_us
+from ..runtime.trace import SWITCH, span
 
 PRESETS = ("default", "fast", "high", "rle", "huffman_only", "turbo")
+# The range around the traced ``forward`` (``_traced_forward``).
+FORWARD = "stage_timing.forward"
 
 
 def card_name() -> str:
@@ -83,79 +97,82 @@ def _wall_ms(fn, device, reps: int) -> float:
     return statistics.median(walls)
 
 
-MARKER = "spin_kernel"  # the kernel of ``torch.cuda._sleep``: a window's edge
-
-
-def _marker() -> None:
-    torch.cuda._sleep(1 << 12)
-    torch.cuda.synchronize()
-
-
-def split_windows(events: list, n: int):
-    """The ``n`` windows of device activity between ``n + 1`` marker kernels.
-
-    ``events`` are (name, start, end) triples.  Activity before the first
-    marker or after the last falls in no window.  None where the markers are
-    not ``n + 1``: the trace then lost one, and its windows cannot be told
-    apart."""
-    marks = sorted(lo for name, lo, _ in events if MARKER in name)
-    if len(marks) != n + 1:
-        return None
-    windows = [[] for _ in range(n)]
-    for name, lo, hi in events:
-        i = bisect.bisect_right(marks, lo) - 1
-        if MARKER not in name and 0 <= i < n:
-            windows[i].append((name, lo, hi))
-    return windows
-
-
 def window_row(window: list) -> dict:
-    """``busy_ms``, ``kernels``, ``copies`` and ``top`` of one window."""
-    kernels = [e for e in window if not e[0].startswith(("Memcpy", "Memset"))]
+    """``busy_ms``, ``kernels``, ``copies`` and ``top`` of a list of device
+    activities ``[start_us, end_us, name]``."""
+    from portbench.trace import busy_us, is_copy
+
+    kernels = [a for a in window if not is_copy(a[2])]
     by_name = {}
-    for name, lo, hi in kernels:
+    for lo, hi, name in kernels:
         us, count = by_name.get(name, (0.0, 0))
         by_name[name] = (us + hi - lo, count + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
-    return {"busy_ms": _busy_us([(lo, hi) for _, lo, hi in window]) / 1e3,
+    return {"busy_ms": busy_us(window) / 1e3,
             "kernels": len(kernels), "copies": len(window) - len(kernels),
             "top": [[name[:80], round(us / 1e3, 6), count] for name, (us, count) in top]}
 
 
-def _profile(fns: list, attempts: int = 3) -> tuple:
-    """(one ``window_row`` per call of ``fns``, the traces it took) under
-    ``torch.profiler``.
+def stage_windows(events, stages) -> dict:
+    """``window_row`` of the activity each ``encoder.<stage>`` range of
+    ``events`` launched, with ``host_ms``, the host's time in the range, and
+    ``gap_ms``, the device's idle gaps in which the host was inside it,
+    built as ``portbench/trace.py``'s ``breakdown`` builds them; by stage,
+    and under ``"forward"`` the same of the ``FORWARD`` range, its stages
+    included."""
+    from portbench.launches import OUTSIDE, host_ranges, launched_in
+    from portbench.trace import breakdown
 
-    One trace holds every call, each in a window between two marker kernels,
-    the device synchronised around it.  A trace may lose the device activity
-    at its edges (a later profiler in one process was seen to lose a
-    window's first kernels, and once all of a short one's), so the trace
-    opens and closes with a call of ``fns[-1]`` outside every window.  A
-    trace with a lost marker or an empty window is taken again, at most
-    ``attempts`` times in all; then the tool fails."""
-    from torch.autograd import DeviceType
+    prefixes = ("encoder.", FORWARD)
+    launched, ranges = launched_in(events, prefixes), host_ranges(events, prefixes)
+    device = [a for acts in launched.values() for a in acts]
+    gaps = dict(breakdown({"device": device, "host_ranges": ranges},
+                          top=len(ranges) + 1)["idle_gaps"])
+
+    def row(key, acts, gap_s):
+        return {**window_row(acts), "host_ms": sum(e - s for s, e in ranges.get(key, ())) / 1e3,
+                "gap_ms": 1e3 * gap_s}
+
+    rows = {name: row("encoder." + name, launched.get("encoder." + name, []),
+                      gaps.get("encoder." + name, 0.0)) for name in stages}
+    rows["forward"] = row(FORWARD, [a for k, acts in launched.items() if k != OUTSIDE
+                                    for a in acts],
+                          sum(s for k, s in gaps.items() if k != OUTSIDE))
+    return rows
+
+
+@contextlib.contextmanager
+def _ranges_on():
+    """The program's ranges on for the block (``runtime/trace.py``)."""
+    was = os.environ.get(SWITCH)
+    os.environ[SWITCH] = "1"
+    try:
+        yield
+    finally:
+        if was is None:
+            del os.environ[SWITCH]
+        else:
+            os.environ[SWITCH] = was
+
+
+def _traced_forward(forward) -> list:
+    """The events of one ``torch.profiler`` trace of ``forward`` with the
+    program's ranges on, inside the range ``FORWARD``, between two calls
+    with them off: a trace may lose the device activity at its edges (a
+    later profiler in one process was seen to lose a window's first
+    kernels), and those calls' activity falls under no range."""
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(1, attempts + 1):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forward()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fns[-1]()
-            for fn in fns:
-                _marker()
-                fn()
-                torch.cuda.synchronize()
-            _marker()
-            fns[-1]()
-            torch.cuda.synchronize()
-        # The profiler mirrors host ranges onto the device's timeline: no device work.
-        events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        windows = split_windows(events, len(fns))
-        if windows is not None and all(windows):
-            return [window_row(w) for w in windows], attempt
-    raise RuntimeError(f"stage_timing: the profiler saw no device activity in a window "
-                       f"({attempts} traces; {len(events)} device activities in the last)")
+        with _ranges_on(), span(FORWARD):
+            forward()
+        torch.cuda.synchronize()
+        forward()
+        torch.cuda.synchronize()
+    return prof.events()
 
 
 def stage_rows(preset: str = "default", batch: int | None = None, emit: int = 65536, *,
@@ -202,10 +219,13 @@ def stage_rows(preset: str = "default", batch: int | None = None, emit: int = 65
             if active:
                 row[key] = _wall_ms(fn, dev, reps)
         if on_card:
-            traced, traces = _profile([fn for _, fn, active in jobs if active])
-            for row, window in zip([r for r in rows if r["runs"]], traced):
-                row.update(window)
-            rows[-1]["traces"] = traces
+            windows = stage_windows(_traced_forward(jobs[-1][1]), enc.STAGES)
+            for row in rows:
+                if row["runs"]:
+                    row.update(windows[row["stage"]])
+            lost = [r["stage"] for r in rows if r["runs"] and not r["kernels"] + r["copies"]]
+            if lost:
+                raise RuntimeError(f"stage_timing: the profiler saw no device activity in {lost}")
     stages = [r for r in rows[:-1] if r["runs"]]
     rows[-1]["sum_of_stages"] = {key: sum(r[key] for r in stages)}
     if on_card:

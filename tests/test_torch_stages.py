@@ -6,9 +6,12 @@ element at every preset, the force modes and ``lr_global=64``, with and
 without checksums, on crafted chunks of the 4 KiB tier and on one 64 KiB
 chunk; at Default and high the chained words also equal the JAX
 ``encode_chunk``'s.  ``stage_timing`` on the CPU prints one line per stage
-and one for ``forward``, with the host's times only.  The mix the tools and
-``chip_smoke.py`` share (``utils/mix.py``) keeps its bytes.  Tolerance:
-exact equality.
+and one for ``forward``, with the host's times only; on a hand-built trace
+it fills each stage's row from the activity its range launched, its host
+time and its idle gaps, and ``forward``'s from the range around the
+traced call.  The mix the tools and ``chip_smoke.py`` share
+(``utils/mix.py``) keeps its bytes.
+Tolerance: exact equality.
 """
 
 import dataclasses
@@ -30,6 +33,7 @@ from deflate_rs_tpu_torch import SpecialOptions  # noqa: E402
 from deflate_rs_tpu_torch.ops.chunk_encode import HALO, PAD, ChunkEncoder  # noqa: E402
 from deflate_rs_tpu_torch.tools import stage_timing  # noqa: E402
 from deflate_rs_tpu_torch.utils import mix  # noqa: E402
+from portbench.tests.events import two_stage_trace  # noqa: E402
 
 OPTIONS = {
     "default": TOpts.default(), "fast": TOpts.fast(), "high": TOpts.high(), "rle": TOpts.rle(),
@@ -179,28 +183,48 @@ def test_the_mix_keeps_its_bytes():
     assert mix.mix(100_000) == m[:100_000]
 
 
-def test_device_activity_splits_at_the_markers():
-    """The trace's activity is cut into windows at the marker kernels; what
-    lies before the first or after the last marker is in no window."""
-    mark = "at::cuda::(anonymous namespace)::spin_kernel(long)"
-    events = [("primer", 0.0, 5.0), (mark, 10.0, 12.0), ("a", 13.0, 20.0),
-              ("Memcpy HtoD", 18.0, 25.0), (mark, 30.0, 31.0), ("b", 32.0, 40.0),
-              ("b", 41.0, 43.0), ("Memset", 44.0, 45.0), (mark, 50.0, 51.0),
-              ("trailer", 60.0, 70.0)]
-    first, second = stage_timing.split_windows(events, 2)
-    assert [e[0] for e in first] == ["a", "Memcpy HtoD"]
-    assert [e[0] for e in second] == ["b", "b", "Memset"]
-    assert stage_timing.window_row(first) == {"busy_ms": 0.012, "kernels": 1, "copies": 1,
-                                              "top": [["a", 0.007, 1]]}
-    row = stage_timing.window_row(second)
-    assert (row["kernels"], row["copies"], row["top"]) == (2, 1, [["b", 0.01, 2]])
-    assert row["busy_ms"] == pytest.approx(0.011)
+def _trace():
+    """``portbench``'s hand-built trace, its stages inside the range that
+    ``stage_timing`` opens around the traced ``forward``."""
+    return two_stage_trace(stage_timing.FORWARD)
 
 
-def test_a_lost_marker_leaves_no_windows():
-    """A trace that lost a marker cannot tell its windows apart: it is refused."""
-    mark = "spin_kernel"
-    events = [(mark, 0.0, 1.0), ("a", 2.0, 3.0), (mark, 4.0, 5.0)]
-    assert stage_timing.split_windows(events, 2) is None
-    assert stage_timing.split_windows(events + [(mark, 6.0, 7.0)], 3) is None
-    assert stage_timing.split_windows(events, 1) == [[("a", 2.0, 3.0)]]
+def test_device_activity_splits_by_the_range_that_launched_it():
+    """Each stage's row holds the activity its range launched; ``forward``'s
+    the activity of its whole range, its stages' and its own (the
+    compaction); activity launched outside it is in no row."""
+    rows = stage_timing.stage_windows(_trace(), ("lz77", "parse"))
+    tops = {k: sorted(t[0] for t in r["top"]) for k, r in rows.items()}
+    assert tops == {"lz77": ["add_kernel", "sort_kernel"],
+                    "parse": ["parse_scan_kernel(int const*)"],
+                    "forward": ["add_kernel", "parse_scan_kernel(int const*)", "sort_kernel"]}
+    # forward's fourth kernel is the compaction, launched in no stage.
+    assert {k: (r["kernels"], r["copies"]) for k, r in rows.items()} == {
+        "lz77": (2, 1), "parse": (1, 0), "forward": (4, 1)}
+
+
+def test_stage_rows_come_from_the_activity_each_range_launched():
+    """busy, kernels, copies and top of each stage's own activity; its host
+    time; the idle gaps whose midpoint finds the host in it, edges
+    included, as portbench's breakdown counts them.  ``forward``'s from its
+    own range, held apart from the stages' sums."""
+    rows = stage_timing.stage_windows(_trace(), ("lz77", "parse", "checksums"))
+    lz, parse, none, forward = (rows[k] for k in ("lz77", "parse", "checksums", "forward"))
+    # lz77: 10-20, 22-25, 30-45 busy; gaps -1-10 (the trace's edge), 20-22
+    # and 25-30 in its range.
+    assert lz == {"busy_ms": 0.028, "kernels": 2, "copies": 1,
+                  "top": [["sort_kernel", 0.015, 1], ["add_kernel", 0.01, 1]],
+                  "host_ms": 0.04, "gap_ms": pytest.approx(0.018)}
+    # parse: 50-58 busy; the gap 45-50 has its midpoint in encoder.parse,
+    # the gap 58-63 after the range.
+    assert parse == {"busy_ms": 0.008, "kernels": 1, "copies": 0,
+                     "top": [["parse_scan_kernel(int const*)", 0.008, 1]],
+                     "host_ms": 0.02, "gap_ms": pytest.approx(0.005)}
+    assert none == {"busy_ms": 0.0, "kernels": 0, "copies": 0, "top": [], "host_ms": 0.0,
+                    "gap_ms": 0.0}
+    # forward: the stages' work and the compaction (63-66); host -1-70; the
+    # gaps of its stages and 58-63, in it outside them.
+    assert (forward["kernels"], forward["copies"]) == (4, 1)
+    assert forward["busy_ms"] == pytest.approx(0.039)
+    assert forward["host_ms"] == pytest.approx(0.071)
+    assert forward["gap_ms"] == pytest.approx(0.028)
