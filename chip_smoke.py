@@ -30,12 +30,15 @@ Phases (each prints a line; any failure exits non-zero):
    (world size 1, timed, ``sharded_*``) and one rank of the dry run (four
    chunks: text, stored, runs, periodic).  In the 4 KiB tier: 32 streams
    of 4 KiB, timed, and one alone, the only batch that tier is launched at.
-   Then the adversarial operands of
+   ``sa_scan`` (the suffix-order matcher's scan) on Default's and fast's
+   operands the same way.  Then the adversarial operands of
    ``deflate_rs_tpu_torch/utils/kernel_cases.py`` go through ``parse_scan``,
-   ``package_merge``, ``lr_measure``, ``quarter_hist`` and ``token_fields``
+   ``package_merge``, ``lr_measure``, ``quarter_hist``, ``token_fields``
    (its ``FIELD_CASES`` and odd shapes, each also one element into its
-   buffers: rows not 16-byte aligned) and their plain versions, exact
-   equality again.  Prints per kernel: its time (CUDA events around replays
+   buffers: rows not 16-byte aligned) and ``sa_scan`` (its ``SA_CASES`` at
+   Default's two parameter sets and fast's, the sort made on the card) and
+   their plain versions, exact equality again; ``sa_scan`` is timed on a
+   batch of all zeros and one of period 2 besides.  Prints per kernel: its time (CUDA events around replays
    of a CUDA graph of 20 calls of the wrapper, so the card's time without
    the host's launch cost; the eager loop's time beside it), the plain
    version's time, the bound computed from the operands just timed, and for
@@ -53,7 +56,7 @@ Phases (each prints a line; any failure exits non-zero):
    three framings, CUDA bytes equal to the CPU port's on its first 1 MiB;
    every kernel's launch counter must move during the timed high run.
 
-5. kernels, wide: all five kernels against their plain versions on operands
+5. kernels, wide: all six kernels against their plain versions on operands
    harvested from a Default run over 8 chunks of 262,144 bytes
    (``parse_scan`` then walks four windows a chunk and ``lr_measure``
    windows of 1,219 words; 1 to 4 MiB chunks are phase 16's), exact
@@ -61,7 +64,8 @@ Phases (each prints a line; any failure exits non-zero):
    that width and at 1 to 4 MiB (``kernel_cases``' ``*_MIB`` and
    ``*_GRANULE`` cases: 16 to 64 windows and partial segments of
    ``parse_scan``, high's local pass on the tiled path, rows of 1 MiB, of
-   4 MiB and of 4,112 positions).
+   4 MiB and of 4,112 positions; ``sa_scan`` at 1 MiB and past 2**24
+   positions).
 6. corpus: ``compress_corpus`` on the 16 MiB mix.  Its bytes must equal
    ``compress_stream(..., pipelined=False)``'s (the chunk-batch engine) on the
    card and the CPU port's on the first 1 MiB; the zlib and gzip forms and
@@ -196,7 +200,7 @@ Phases (each prints a line; any failure exits non-zero):
    five presets each): the card's whole stream has the pinned length and
    sha256.  Each size at which the JAX package fails, and the cap (32 MiB +
    16, 64 MiB), raises ``ValueError`` at the entry, no kernel launched.
-   The kernels at the first batch of the 1 MiB runs (all five at Default;
+   The kernels at the first batch of the 1 MiB runs (all six at Default;
    the tiled path at high), of Default's 2 MiB, 4,161,280 B, 512-segment
    16 MiB and 1,024-segment 32 MiB runs (32, 16, 4 and 2 chunks; the tiled
    path held to its plain version on two rows), of the other runs above
@@ -215,7 +219,12 @@ as two on 128 lanes per SM; int32 has 64 lanes and counts one).  Operations
 counted, from the data of the run: parse_scan 2 per token of the result;
 package_merge 3 per live leaf and level (a merge of about 2m entries and m
 pair sums); lr_measure 8 per word and live dominant (at either geometry);
-token_fields 10 and quarter_hist 2 per position.
+token_fields 10 and quarter_hist 2 per position; sa_scan 6 per word of each
+row's LCP with the row before, 4 per table read of its probe of the rows
+that share its sort key and 10 per depth its walk takes past them, counted
+as the kernel walks (``sa_scan_ops``).  A run of one preset launches
+``sa_scan`` once a batch at Default and fast and never at high, rle,
+huffman_only or turbo (``check_launches``).
 
 The last two lines are a JSON object describing the kernels and the
 ``{"ok": true, "device": ...}`` line.
@@ -287,9 +296,155 @@ def bound_of(key: str, args, outs) -> tuple:
         ops = 10 * args[1].numel()
     elif key.startswith("quarter_hist"):
         ops = 2 * args[0].numel()
+    elif key.startswith("sa_scan"):
+        ops = sa_scan_ops(*args)
     else:
         raise KeyError(key)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+
+
+def same_key_probes(n: int, limit: int, levels: int) -> int:
+    """Table reads of ``same_key`` in ``csrc/sa_scan.cu`` over a group of
+    ``n`` rows (``limit`` at most): strides of 256 and 16 rows where the
+    min-tables of those levels exist, then single rows."""
+    t = reads = 0
+    while t < limit:
+        hit = False
+        for stride, level in ((256, 8), (16, 4), (1, 0)):
+            if levels >= level and t + stride <= limit:
+                reads += 1
+                if t + stride <= n:
+                    t += stride
+                    hit = True
+                    break
+        if not hit:
+            break
+    return reads
+
+
+def sa_scan_ops(buf, perm, hstart, n_total, K, PW, nkey, tail) -> int:
+    """The integer operations of the ``sa_scan`` kernel's work on these
+    operands, counted as the kernel walks: 6 a word of each row's LCP with
+    the row before (to its first differing word), 10 a depth its walk takes,
+    and 4 a table read of its probe of the rows that share a row's sort key
+    (``same_key_probes``) where a side is still live past its first depth.
+    A side stops at the first depth whose running minimum is under 3 or
+    whose best possible score, ``(run << 16) + WINDOW``, does not beat the
+    row's best so far (that depth counted)."""
+    import torch
+
+    from deflate_rs_tpu_torch.constants import WINDOW_SIZE as W
+    from deflate_rs_tpu_torch.ops import matching
+
+    B, N = perm.shape
+    packed = matching.pack_words(buf)
+    keys = matching.key_words(buf, N, n_total, hstart, nkey)
+    al = matching.adjacent_lcp([k.gather(1, perm) for k in keys],
+                               [packed[:, 4 * w: N + 4 * w].gather(1, perm)
+                                for w in range(nkey, PW)])
+    ops = 6 * int(torch.clamp(al[:, 1:] // 4 + 1, max=PW).sum())
+    spos = perm.int()
+    hs, last = hstart.int()[:, None], n_total.int()[:, None] - 3
+    valid = (spos >= hs) & (spos <= last)
+    deep = K + sum(1 << j for j in tail)
+    levels = 8 if max(tail, default=-1) >= 8 else 4 if max(tail, default=-1) >= 4 else 0
+    idx = torch.arange(N, device=al.device).expand(B, N)
+    brk = al < 4 * nkey
+    back = idx - torch.cummax(torch.where(brk, idx, -1), 1).values
+    nxt = torch.cummin(torch.where(brk, idx, N).flip(1), 1).values.flip(1)
+    fwd = torch.nn.functional.pad(nxt[:, 1:], (0, 1), value=N) - idx - 1
+    zero = torch.zeros(B, deep, dtype=torch.int32, device=al.device)
+    al_b, al_f = torch.cat([zero, al], 1), torch.cat([al, zero], 1)
+    pos_b, pos_f = torch.cat([zero, spos], 1), torch.cat([spos, zero], 1)
+    tables = {0: al}
+    for j in range(1, max(tail, default=0) + 1):
+        prev = tables[j - 1]
+        s = 1 << (j - 1)
+        tables[j] = torch.minimum(prev, torch.nn.functional.pad(prev[:, :-s], (s, 0)))
+    table = torch.tensor([same_key_probes(n, deep - 1, levels) for n in range(deep)],
+                         device=al.device)
+    best = torch.zeros_like(spos)
+    steps = probes = 0
+    for side, same in ((0, back), (1, fwd)):
+        # Depth 1, then the rows that share the key (``same``, capped at the
+        # reach) probed past where the side is still live.
+        same = torch.clamp(same, max=deep).int()
+        run = torch.clamp(al if side == 0 else torch.nn.functional.pad(al[:, 1:], (0, 1)),
+                          max=4 * PW)
+        steps += int(valid.sum())
+        live = valid & (run >= 3)
+        group = same >= 1
+        if side == 0:
+            c = pos_b[:, deep - 1: deep - 1 + N]
+            dist = spos - c
+            ok = live & (dist >= 1) & (dist <= W) & (c >= hs)
+            best = torch.where(ok, (run << 16) | (W + 1 - dist), best)
+            live &= ~group | ((run << 16) + W > best)
+            done = torch.where(group, same, 1)
+            run = torch.where(group, 4 * PW, run)
+        else:
+            live &= (run << 16) + W > best
+            done = torch.where(group, same, 0)
+            run = torch.full_like(run, 4 * PW)
+        n = torch.clamp(same - 1, min=0).long()
+        probes += int(torch.where(live & group, table[n], 0).sum())
+        live &= done < deep
+        depths = [(d, None) for d in range(1, K + 1)]
+        k = K
+        for j in tail:
+            depths.append((k + (1 << j), (j, k)))
+            k += 1 << j
+        for d, jump in depths:
+            on = live & (d > done)
+            steps += int(on.sum())
+            if jump is None:
+                a = al_b[:, deep - d + 1: deep - d + 1 + N] if side == 0 else al_f[:, d: d + N]
+            else:
+                j, k = jump
+                tab = torch.cat([zero, tables[j]], 1) if side == 0 else torch.cat([tables[j], zero], 1)
+                a = tab[:, deep - k: deep - k + N] if side == 0 else tab[:, d: d + N]
+            run = torch.where(on, torch.minimum(run, a), run)
+            live &= ~on | ((run >= 3) & ((run << 16) + W > best))
+            on &= live
+            c = pos_b[:, deep - d: deep - d + N] if side == 0 else pos_f[:, d: d + N]
+            dist = spos - c
+            ok = on & (dist >= 1) & (dist <= W) & (c >= hs)
+            best = torch.where(ok, torch.maximum(best, (run << 16) | (W + 1 - dist)), best)
+    return ops + 4 * probes + 10 * steps
+
+
+def compare_sa(matching, args) -> tuple:
+    """(``sa_scan``'s output, max_abs_err against ``sa_scan_plain``); raises
+    on a difference."""
+    import torch
+
+    got = matching.sa_scan(*args)
+    want = matching.sa_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise SystemExit(f"sa_scan disagrees with its plain version at {tuple(args[1].shape)}, "
+                         f"parameters {args[4:]}: max_abs_err={err}")
+    return got, err
+
+
+def sa_cases(matching, kernel_cases, cases, dev) -> int:
+    """``sa_scan`` against its plain version on ``kernel_cases``' operands
+    ``cases`` at every parameter set of ``SA_PARAMS``; the sort's
+    permutation made on the card, as ``find_matches`` makes it.  Returns the
+    number of cases."""
+    import torch
+
+    for E, B, seed in cases:
+        buf, hs, nt = (torch.from_numpy(a).to(dev) for a in kernel_cases.sa_batch(E, B, seed))
+        N = kernel_cases.SA_HALO + E
+        for params in kernel_cases.SA_PARAMS:
+            perm = matching._stable_lex_sort(matching.key_words(buf, N, nt, hs, params[2]))
+            compare_sa(matching, (buf, perm, hs, nt, *params))
+            del perm
+        del buf
+    torch.cuda.empty_cache()
+    return len(cases)
 
 
 def bincount_yardstick(args, outs):
@@ -330,12 +485,12 @@ def tier_buffers(mix: bytes, emit: int, batch: int = BATCH):
 
 def harvest(encoder, bufs, hist, ns, last):
     """Run ``encoder`` once, recording the first inputs of each kernel wrapper."""
-    from deflate_rs_tpu_torch.ops import chunk_encode, longrange, package_merge
+    from deflate_rs_tpu_torch.ops import chunk_encode, longrange, matching, package_merge
 
     seen = {}
     patches = [(longrange, "lr_measure"), (chunk_encode, "parse_scan"),
                (chunk_encode, "token_fields"), (package_merge, "lengths_by_rank"),
-               (chunk_encode, "quarter_histograms")]
+               (chunk_encode, "quarter_histograms"), (matching, "sa_scan")]
     originals = [getattr(m, name) for m, name in patches]
 
     def recorder(name, fn):
@@ -440,16 +595,30 @@ def spread(values: list) -> str:
 TILED = "lr_measure_tiled"  # lr_measure's tiled path: lr_global, and high from 679,680 B chunks
 
 
-def check_launches(label: str, counts: dict, off_path: tuple = (TILED,)) -> None:
+def runs_sa(o) -> bool:
+    """Whether the options' matcher is the suffix sort (Default and fast),
+    whose scan is the ``sa_scan`` kernel."""
+    return o.matcher_mode == "hash" and o.matcher_algo == "sa"
+
+
+def check_launches(label: str, counts: dict, off_path: tuple = (TILED,), o=None) -> None:
     """Every kernel must have launched on the path, but those ``off_path``,
     which must not have (the presets' long-range windows fit the block path
     below high's chunks of 679,680 bytes, so the tiled one is off every
-    knob-free path at 64 KiB)."""
+    knob-free path at 64 KiB).  A run of one preset's options ``o`` launches
+    ``sa_scan`` once a batch, as often as ``parse_scan``, where its matcher
+    is the suffix sort, and never elsewhere (high, rle, huffman_only,
+    turbo)."""
+    if o is not None and not runs_sa(o):
+        off_path = (*off_path, "sa_scan")
     missing = [k for k, v in counts.items() if v == 0 and k not in off_path]
     stray = [k for k in off_path if counts.get(k)]
     if missing or stray:
         raise SystemExit(f"{label}: kernels not launched on its path: {missing}; launched "
                          f"off it: {stray}")
+    if o is not None and runs_sa(o) and counts["sa_scan"] != counts["parse_scan"]:
+        raise SystemExit(f"{label}: sa_scan launched {counts['sa_scan']} times, not once a "
+                         f"batch ({counts['parse_scan']})")
 
 
 def timed_run(dt, cuda, data: bytes, opts, label: str, off_path: tuple = (TILED,)) -> dict:
@@ -484,7 +653,7 @@ def timed_run(dt, cuda, data: bytes, opts, label: str, off_path: tuple = (TILED,
           f"zlib {mb / wall_z:.2f} MB/s, gzip {mb / wall_g:.2f} MB/s (warm; above four "
           f"chunks through the corpus engine at its default batch)")
     print(f"{label}: launches during the timed deflate run: {launches}")
-    check_launches(label, launches, off_path)
+    check_launches(label, launches, off_path, o=opts)
     return launches
 
 
@@ -653,7 +822,7 @@ def decode_phase(dt, cuda, pg11: bytes, head: bytes, presets: dict) -> dict:
     counts = {n_: k.launches for n_, k in cuda.KERNELS.items()}
     if any(counts.values()):
         raise SystemExit(f"decode: a kernel was launched while decoding: {counts}")
-    print(f"decode: launches of the five kernels while decoding: {counts} (none on this path)")
+    print(f"decode: launches of the kernels while decoding: {counts} (none on this path)")
     return counts
 
 
@@ -738,7 +907,7 @@ def sharded_phase(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes
             rates.append(mb / wall)
         corpus_rates = [mb / wall_of(lambda: corpus.compress_corpus(mix, device="cuda"))[1]
                         for _ in range(3)]
-        check_launches("sharded", counts)
+        check_launches("sharded", counts, o=dt.CompressionOptions.default())
         fetched = shard["cw"].nbytes + 6 * 8 * len(ns)
         print(f"sharded: world size {mesh.size} over {dist.get_backend()}, {len(ns)} chunks of {emit} B on "
               f"{mesh.device}: packed == one-shot bytes, byte-aligned (assemble_host and "
@@ -819,7 +988,7 @@ def mesh_run(dt, cuda, mix: bytes, one_shot: bytes, aligned_one_shot: bytes, w1_
         if out != one_shot:
             raise SystemExit("sharded mesh: bytes changed between runs")
         rates.append(mb / wall)
-    check_launches("sharded mesh", counts)
+    check_launches("sharded mesh", counts, o=dt.CompressionOptions.default())
     want = {k: v * mesh.size for k, v in w1_counts.items()}
     if counts != want:
         raise SystemExit(f"sharded mesh: launches {counts}, not once a card a step ({want})")
@@ -1048,12 +1217,13 @@ def knobs_phase(dt, cuda, pg11: bytes, mix: bytes, wall_of) -> dict:
                 if zlib.decompress(out, -15) != mix:
                     raise SystemExit("knobs: Default lr_global=64 on the mix does not round-trip")
                 ratio = len(out) / len(mix)
-    check_launches("knobs: Default lr_global=64", counts, off_path=("lr_measure",))
+    check_launches("knobs: Default lr_global=64", counts, off_path=("lr_measure",), o=o64)
     cuda.reset_launches()
     hi, wall_hi = wall_of(lambda: dt.deflate_bytes_conf(
         mix, dataclasses.replace(O.high(), lr_global=64), device="cuda"))
     counts_high = {n_: k.launches for n_, k in cuda.KERNELS.items()}
-    check_launches("knobs: high lr_global=64", counts_high, off_path=("lr_measure",))
+    check_launches("knobs: high lr_global=64", counts_high, off_path=("lr_measure",),
+                   o=O.high())
     print(f"knobs: one-shot on the 16 MiB mix, Default lr_global=64 "
           f"{[round(r, 2) for r in rates['lr_global=64']]} MB/s (ratio {ratio:.4f}), knob-free "
           f"Default {[round(r, 2) for r in rates['no knob']]} MB/s, in turns; launches of a "
@@ -1497,7 +1667,7 @@ def chunks_phase(dt, cuda, wall_of) -> tuple:
             off_path = ("lr_measure",) if tiled else (TILED,)
         else:
             off_path = ("lr_measure", TILED)
-        check_launches(label, counts, off_path=off_path)
+        check_launches(label, counts, off_path=off_path, o=o)
         ratio = ratios[preset, E] = len(first.deflate) / len(mix)
         if E in (65536, 4 * MIB):
             base[preset] = (E, ratio)
@@ -1552,8 +1722,8 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
     rows by key)."""
     import torch
 
-    from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
-                                          pm_kernel)
+    from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, matching,
+                                          parse_scan, pm_kernel)
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
     from deflate_rs_tpu_torch.ops.inflate_device import inflate_device
     from deflate_rs_tpu_torch.parallel import corpus
@@ -1577,7 +1747,7 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
             if inflate_device(got, len(text), device="cuda") != text:
                 raise SystemExit(f"{label}: inflate_device does not give the input back")
             ti = time.perf_counter() - ti
-            check_launches(label, counts, off_path=("lr_measure", TILED))
+            check_launches(label, counts, off_path=("lr_measure", TILED), o=o)
             launches[preset, E, "text"] = counts
             print(f"{label} (a block of litlen symbols of 2**20 and more, where the JAX "
                   f"package's stream is invalid): {len(got)} B, round-trips through zlib and "
@@ -1615,7 +1785,7 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
         witnesses.add(label, got.deflate, pieces, preset, SMALL_EMIT)
         if zlib.decompress(got.deflate, -15) != quarter:
             raise SystemExit(f"{label}: does not round-trip")
-        check_launches(label, counts, off_path=("lr_measure", TILED))
+        check_launches(label, counts, off_path=("lr_measure", TILED), o=o)
         launches[preset, SMALL_EMIT] = counts
         print(f"{label}: mix[:4 MiB] ratio {len(got.deflate) / len(quarter):.5f}, "
               f"{len(quarter) / 1e6 / wall:.2f} MB/s (one run, cold); launches {counts}",
@@ -1636,7 +1806,7 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
                     raise SystemExit(f"{label}: the stream does not round-trip through zlib")
                 if inflate_device(got, len(data), device="cuda") != data:
                     raise SystemExit(f"{label}: inflate_device does not give the input back")
-                check_launches(label, counts, off_path=("lr_measure", TILED))
+                check_launches(label, counts, off_path=("lr_measure", TILED), o=o)
                 launches[preset, size, what] = counts
                 print(f"{label}: {len(got)} B, round-trips through zlib and inflate_device on "
                       f"the card; launches {counts}", flush=True)
@@ -1652,7 +1822,7 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
         raise SystemExit(f"{label}: the stream does not round-trip through zlib")
     if inflate_device(got, len(data), device="cuda") != data:
         raise SystemExit(f"{label}: inflate_device does not give the input back")
-    check_launches(label, counts, off_path=("lr_measure", TILED))
+    check_launches(label, counts, off_path=("lr_measure", TILED), o=_preset(dt, preset))
     launches[preset, 32 * MIB, "one_byte"] = counts
     print(f"{label} (a litlen leaf of 2**25): {len(got)} B, round-trips through zlib and "
           f"inflate_device on the card; launches {counts}", flush=True)
@@ -1696,15 +1866,19 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
             "parse_scan": lambda a: parse_scan.parse_scan(*a),
             "token_fields": lambda a: field_kernel.token_fields(*a),
             "lengths_by_rank": lambda a: pm_kernel.lengths_by_rank(*a),
-            "quarter_hist": lambda a: hist_kernel.quarter_histograms(*a)}
+            "quarter_hist": lambda a: hist_kernel.quarter_histograms(*a),
+            "sa_scan": lambda a: matching.sa_scan(*a)}
     plain = {"lr_measure": lambda a: lr_plain_rows(a, 2),
              "parse_scan": lambda a: parse_scan.parse_scan_plain(*a),
              "token_fields": lambda a: field_kernel.token_fields_plain(*a),
              "lengths_by_rank": lambda a: pm_kernel.lengths_by_rank_plain(*a),
-             "quarter_hist": lambda a: hist_kernel.quarter_histograms_plain(*a)}
+             "quarter_hist": lambda a: hist_kernel.quarter_histograms_plain(*a),
+             "sa_scan": lambda a: matching.sa_scan_plain(*a)}
+    # sa_scan last: where the preset's matcher is no suffix sort it is skipped.
     every = (("lr_measure", "lr_measure"), ("parse_scan", "parse_scan"),
              ("token_fields", "token_fields"), ("lengths_by_rank_15", "lengths_by_rank"),
-             ("lengths_by_rank_7", "lengths_by_rank"), ("quarter_histograms", "quarter_hist"))
+             ("lengths_by_rank_7", "lengths_by_rank"), ("quarter_histograms", "quarter_hist"),
+             ("sa_scan", "sa_scan"))
     # (row key, preset, chunk size, recorded wrapper, which of its calls)
     sets = ([("mib", "default", MIB, rec, name) for rec, name in every]
             + [("high_mib", "high", MIB, "lr_measure", "lr_measure")]
@@ -1721,6 +1895,8 @@ def _chunks_checks(dt, cuda, mix: bytes, witnesses, wall_of) -> tuple:
     one_byte = b"".join(byte * MIB for _, byte in ONE_BYTE_VALUES)
     rows, seen = {}, {}
     for row_key, preset, E, rec, name in sets:
+        if name == "sa_scan" and not runs_sa(_preset(dt, preset)):
+            continue
         if (preset, E) not in seen:
             seen.clear()
             torch.cuda.empty_cache()
@@ -1851,8 +2027,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, HERE)
     import deflate_rs_tpu_torch as dt
-    from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, parse_scan,
-                                          pm_kernel)
+    from deflate_rs_tpu_torch.ops import (field_kernel, hist_kernel, lr_kernel, matching,
+                                          parse_scan, pm_kernel)
     from deflate_rs_tpu_torch.models.deflate import BATCH_CHUNKS
     from deflate_rs_tpu_torch.ops.chunk_encode import ChunkEncoder
     from deflate_rs_tpu_torch.parallel import corpus
@@ -1906,6 +2082,8 @@ def main(argv=None) -> int:
         "quarter_hist_nq4": quarter_hist_plain,
         "lr_measure_s32": lambda a: lr_kernel.lr_measure_plain(*a),
         "lengths_by_rank_15_high": lambda a: pm_kernel.lengths_by_rank_plain(*a),
+        "sa_scan": lambda a: matching.sa_scan_plain(*a),
+        "sa_scan_fast": lambda a: matching.sa_scan_plain(*a),
     }
     kern = {
         "lr_measure": lambda a: lr_kernel.lr_measure(*a),
@@ -1918,6 +2096,8 @@ def main(argv=None) -> int:
         "quarter_hist_nq4": quarter_hist_kernel,
         "lr_measure_s32": lambda a: lr_kernel.lr_measure(*a),
         "lengths_by_rank_15_high": lambda a: pm_kernel.lengths_by_rank(*a),
+        "sa_scan": lambda a: matching.sa_scan(*a),
+        "sa_scan_fast": lambda a: matching.sa_scan(*a),
     }
     # Which encoder's run supplies each kernel's inputs: (preset, recorded key).
     source = {
@@ -1931,6 +2111,8 @@ def main(argv=None) -> int:
         "quarter_hist_nq4": ("rle", "quarter_histograms"),
         "lr_measure_s32": ("high", "lr_measure"),
         "lengths_by_rank_15_high": ("high", "lengths_by_rank_15"),
+        "sa_scan": ("default", "sa_scan"),
+        "sa_scan_fast": ("fast", "sa_scan"),
     }
     harvest_opts = {"default": O.default(), "fast": O.fast(), "rle": O.rle(), "high": O.high()}
     results = {}
@@ -2070,11 +2252,33 @@ def main(argv=None) -> int:
                                                          field_kernel.token_fields_plain(*args))):
                 raise SystemExit(f"token_fields disagrees on the adversarial case {case} "
                                  f"({form})")
+    sa_checked = sa_cases(matching, kernel_cases, kernel_cases.SA_CASES, dev)
     torch.cuda.synchronize()
     print(f"kernels: adversarial cases equal the plain versions exactly: parse_scan "
           f"{len(kernel_cases.PARSE_CASES)}, package_merge {len(pm_cases)}, lr_measure "
           f"{len(kernel_cases.LR_CASES)}, quarter_hist {len(kernel_cases.HIST_CASES)}, "
-          f"token_fields {len(field_sets)}, each aligned and one element in")
+          f"token_fields {len(field_sets)}, each aligned and one element in; sa_scan "
+          f"{sa_checked} (every case at each of {len(kernel_cases.SA_PARAMS)} parameter sets)")
+    # The scan on one pattern a batch, at the corpus engine's batch of 64 KiB
+    # chunks and Default's parameters there: all zeros (every side stops at
+    # its first depth), period 2 (no side stops: every depth and jump).
+    for pattern in ("zeros", "period2"):
+        buf, hs, nt = (torch.from_numpy(a).to(dev) for a in kernel_cases.sa_pattern_batch(
+            pattern, 65536, kb))
+        N = HALO + 65536
+        perm = matching._stable_lex_sort(matching.key_words(buf, N, nt, hs, 4))
+        args = (buf, perm, hs, nt, *kernel_cases.SA_PARAMS[0])
+        key = f"sa_scan_{pattern}"
+        got, err = compare_sa(matching, args)
+        k_ms = kernel_ms(lambda: matching.sa_scan(*args))
+        p_ms = cuda_ms(lambda: matching.sa_scan_plain(*args), 2)
+        bytes_ms, ops_ms = bound_of("sa_scan", args, (got,))
+        results[key] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms}
+        print(f"kernel {key} emit=65536 B={kb}: max_abs_err={err} kernel {k_ms:.4f} ms plain "
+              f"{p_ms:.4f} ms bound {max(bytes_ms, ops_ms):.5f} ms (bytes {bytes_ms:.5f}, "
+              f"operations {ops_ms:.5f}) share {100 * max(bytes_ms, ops_ms) / k_ms:.1f} %")
+        del buf, perm, args, got
     print(f"kernels: phase done at {time.perf_counter() - t_start:.1f} s")
 
     # ------------------------------------------------------ default path
@@ -2128,7 +2332,7 @@ def main(argv=None) -> int:
                      ("token_fields", "token_fields"),
                      ("lengths_by_rank_15", "lengths_by_rank_15"),
                      ("lengths_by_rank_7", "lengths_by_rank_7"),
-                     ("quarter_hist_nq8", "quarter_histograms")):
+                     ("quarter_hist_nq8", "quarter_histograms"), ("sa_scan", "sa_scan")):
         args = seen_wide[rec]
         got, err = compare(key, args)
         k_ms = kernel_ms(lambda: kern[key](args))
@@ -2194,9 +2398,13 @@ def main(argv=None) -> int:
                                                          field_kernel.token_fields_plain(*args))):
                 raise SystemExit(f"token_fields disagrees on the case {case}")
     del a
+    sa_wide = sa_cases(matching, kernel_cases,
+                       kernel_cases.SA_CASES_MIB + kernel_cases.SA_CASES_16MIB, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"kernels, wide: adversarial cases equal the plain versions exactly: parse_scan "
+    print(f"kernels, wide: adversarial cases equal the plain versions exactly: sa_scan "
+          f"{sa_wide} at 1 MiB and past 2^24 positions (each at {len(kernel_cases.SA_PARAMS)} "
+          f"parameter sets); parse_scan "
           f"{len(kernel_cases.PARSE_CASES_WIDE)} wide, {len(parse_sets)} at partial segments "
           f"and 1 to 16 MiB; lr_measure {len(kernel_cases.LR_CASES_WIDE)} wide, "
           f"{len(kernel_cases.LR_CASES_MIB)} at 512 KiB and 1 MiB, "
@@ -2266,7 +2474,7 @@ def main(argv=None) -> int:
                   f"(meta {st_['meta_bytes'] // st_['batches']}, words "
                   f"{st_['words_bytes'] // st_['batches']}; {st_['batches']} batches)")
     launches["corpus"] = launches[f"corpus_{corpus.BATCH_SIZE}_{corpus.QUEUE_DEPTH}"]
-    check_launches("corpus", launches["corpus"])
+    check_launches("corpus", launches["corpus"], o=default)
     print(f"corpus: launches during a timed run at the defaults: {launches['corpus']}; phase "
           f"done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2298,7 +2506,7 @@ def main(argv=None) -> int:
         print(f"streaming: {cls.__name__} == one-shot CUDA bytes; 1 MiB writes {mb / wall:.2f} "
               f"MB/s, 99,991 B writes {len(data99) / 1e6 / wall99:.2f} MB/s over "
               f"{len(data99) >> 20} MiB; launches (1 MiB writes) {counts}")
-    check_launches("streaming", launches["streaming"])
+    check_launches("streaming", launches["streaming"], o=default)
     flushed = stream_through(ZlibEncoder, quarter, 99_991, flush_every=300_000, device="cuda")
     if zlib.decompress(flushed) != quarter or flushed.count(b"\x00\x00\xff\xff") < 10:
         raise SystemExit("streaming: a stream with a flush every 300,000 B does not round-trip")
@@ -2344,7 +2552,7 @@ def main(argv=None) -> int:
             raise SystemExit("streaming: a 4 KiB stream does not round-trip")
         if i:
             small_ms.append(ms)
-    check_launches("streaming at B = 1", launches["single_chunk"])
+    check_launches("streaming at B = 1", launches["single_chunk"], o=default)
     print(f"streaming: single chunk, 64 KiB write + flush(), 20 after a warm one: "
           f"{spread(chunk_ms)} ms; launches of the 20: {launches['single_chunk']}")
     print(f"streaming: single chunk, 4 KiB write + finish(), 20 after a warm one: "
@@ -2510,6 +2718,34 @@ def main(argv=None) -> int:
         global_row[f"{row_key}_batch"] = corpus.default_batch_size(E)
         global_row.update({f"{row_key}_{k}": v for k, v in chunk_rows[row_key, "lr_measure"].items()})
     rows.append(global_row)
+    sa = results["sa_scan"]
+    sa_keys = ("sa_scan", "sa_scan_fast", "sa_scan_zeros", "sa_scan_period2")
+    rows.append({
+        "name": "sa_scan", "route": "cuda", "source": "deflate_rs_tpu_torch/csrc/sa_scan.cu",
+        "replaces": "none: the JAX package ran sa_scan_xla (deflate_rs_tpu/ops/matching.py:221) "
+                    "in XLA",
+        "launches": launches["default"]["sa_scan"],
+        **{f"launches_{k}": launches[k]["sa_scan"]
+           for k in ("default", "high", "corpus", "streaming", "single_chunk", "sharded",
+                     "sharded_mesh", "decode")},
+        "batch": kb, "ms": sa["ms"], "eager_ms": sa["eager_ms"], "plain_ms": sa["plain_ms"],
+        "bound_ms": max(sa["bytes_ms"], sa["ops_ms"]),
+        "bound_by": "bytes" if sa["bytes_ms"] >= sa["ops_ms"] else "operations",
+        "b1_ms": sa["b1_ms"], "b1_plain_ms": sa["b1_plain_ms"], "b1_bound_ms": sa["b1_bound_ms"],
+        "sharded_batch": n_sharded, "sharded_ms": sa["sharded_ms"],
+        "sharded_plain_ms": sa["sharded_plain_ms"], "sharded_bound_ms": sa["sharded_bound_ms"],
+        "wide_batch": WIDE_BATCH, "wide_ms": wide["sa_scan"]["ms"],
+        "wide_bound_ms": wide["sa_scan"]["bound_ms"], "wide_plain_ms": wide["sa_scan"]["plain_ms"],
+        "max_abs_err": max(results[k]["max_abs_err"] for k in sa_keys),
+        **{f"{k[8:]}_{f}": results[k][f] for k in sa_keys[1:] for f in ("ms", "plain_ms")},
+        **{f"{k[8:]}_bound_ms": max(results[k]["bytes_ms"], results[k]["ops_ms"])
+           for k in sa_keys[1:]},
+        "launches_chunks_mib": mib["sa_scan"], "launches_chunks_high_mib": high_mib["sa_scan"],
+        "mib_batch": corpus.BATCH_SIZE,
+        **{f"mib_{k}": v for k, v in chunk_rows["mib", "sa_scan"].items()},
+        **{f"{row_key}_{k}": v for row_key in ("mib2", "mib4", "mib16", "mib32")
+           for k, v in chunk_rows[row_key, "sa_scan"].items()},
+    })
     high_pm = results["lengths_by_rank_15_high"]
     print(f"package_merge at high's shape: kernel {high_pm['ms']:.4f} ms plain "
           f"{high_pm['plain_ms']:.4f} ms bound {max(high_pm['bytes_ms'], high_pm['ops_ms']):.5f} ms")
@@ -2550,7 +2786,11 @@ def main(argv=None) -> int:
           "segments and 32 MiB chunks (2 chunks); launches_chunks_wide the sum over the timed "
           "fast and rle runs at 8, 16 and 32 MiB and huffman_only and turbo at 16 and 32 MiB, "
           "chunks_wide their first batches' ms, plain_ms and bound_ms by run (quarter_hist's "
-          "library_ms the bincount at 32 MiB); the CHUNKS_WIDE line holds those runs' MB/s, "
+          "library_ms the bincount at 32 MiB). The sa_scan row: launches as above (0 at high), "
+          "ms to bound_ms on Default's operands at the batches above, fast_* on fast's at the "
+          "corpus batch, zeros_* and period2_* on a batch of one pattern at Default's "
+          "parameters, mib_* to mib32_* at the chunks phase's first Default batches; the "
+          "CHUNKS_WIDE line holds those runs' MB/s, "
           "ratio, peak GiB and batches, and the 32 MiB runs' ratio at 16 MiB")
     print("CHUNKS_WIDE " + json.dumps({f"{p} {E}": v for (p, E), v in wide_runs.items()}))
     print(json.dumps({"kernels": rows}))

@@ -14,17 +14,30 @@ the tie-break.  The match length with the neighbour ``k`` rows away in that
 order is the running minimum of adjacent-row LCPs, scanned ``K`` rows deep
 on both sides plus a log-step tail.  The JAX package's uint32 words are
 carried here as int64 (PyTorch has no uint32 shifts); the scan itself runs
-in int32.
+in int32.  On the card the scan is one kernel, ``csrc/sa_scan.cu``, that
+reads the sorted rows' bytes from the buffers and writes each score at its
+position; :func:`sa_scan_plain` is its plain twin.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..constants import MAX_MATCH, WINDOW_SIZE
+from ..runtime import cuda
 from .hashing import INVALID_KEY, hash3
 
 _M32 = 0xFFFFFFFF
+
+_KERNEL = cuda.register("sa_scan", [
+    ctypes.c_void_p, ctypes.c_longlong,                                # buf, its row width
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                 # perm, hstart, n_total
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, N, K, PW, NKEY
+    ctypes.c_void_p, ctypes.c_int,                                     # tail jumps, their count
+    ctypes.c_void_p,                                                   # out
+])
 
 
 def pack_words(data: torch.Tensor) -> torch.Tensor:
@@ -95,18 +108,11 @@ def _stable_lex_sort(keys: list) -> torch.Tensor:
     return perm
 
 
-def sa_scan(skeys, spos, spay, hstart, n_total, num_checks: int,
-            probe_words: int, tail_jumps: tuple = ()):
-    """Suffix-order LCP + K-deep running-min scan (``sa_scan_xla``).
-
-    Returns the packed score ``run << 16 | (WINDOW_SIZE + 1 - dist)`` per
-    sorted row, int32[B, N], 0 where the row's owner is not a valid start.
-    """
+def adjacent_lcp(skeys, spay) -> torch.Tensor:
+    """Byte LCP of each sorted row with the row before, int32[B, N] (0 in
+    row 0, at most 4 bytes a word): the key words compared from their high
+    bytes, then the payload words from their low bytes."""
     NKEY = len(skeys)
-    B, N = spos.shape
-    dev = spos.device
-
-    # --------------------------- adjacent-row LCP (bytes, <= 4*probe_words)
     total = None
     for w in range(NKEY):
         a = skeys[w]
@@ -118,6 +124,19 @@ def sa_scan(skeys, spos, spay, hstart, n_total, num_checks: int,
         total = total + torch.where(total == 4 * w, matched_low_bytes(p ^ b), 0)
     al = total.int()
     al[:, 0] = 0
+    return al
+
+
+def sa_scan_rows(skeys, spos, spay, hstart, n_total, num_checks: int,
+                 probe_words: int, tail_jumps: tuple = ()):
+    """Suffix-order LCP + K-deep running-min scan (``sa_scan_xla``).
+
+    Returns the packed score ``run << 16 | (WINDOW_SIZE + 1 - dist)`` per
+    sorted row, int32[B, N], 0 where the row's owner is not a valid start.
+    """
+    B, N = spos.shape
+    dev = spos.device
+    al = adjacent_lcp(skeys, spay)
 
     # ------------------- K-deep running-min scan, both suffix-order sides
     K = num_checks
@@ -168,6 +187,93 @@ def sa_scan(skeys, spos, spay, hstart, n_total, num_checks: int,
     return torch.where(svalid, best, 0)
 
 
+def key_words(buf, N: int, n_total, hstart, nkey: int) -> list:
+    """The suffix sort's keys: the first ``4*nkey`` bytes of each position
+    as big-endian words (unsigned 32-bit values in int64), all ones where
+    the position is no valid match start."""
+    idx = torch.arange(N, dtype=torch.int32, device=buf.device)
+    nt = n_total.int()[:, None]
+    valid = (idx >= hstart.int()[:, None]) & (idx <= nt - 3)
+    d = buf.long()
+    be = (d[:, :-3] << 24) | (d[:, 1:-2] << 16) | (d[:, 2:-1] << 8) | d[:, 3:]
+    return [torch.where(valid, be[:, 4 * w : N + 4 * w], _M32) for w in range(nkey)]
+
+
+def sa_scan_plain(buf, perm, hstart, n_total, num_checks: int, probe_words: int,
+                  nkey: int, tail_jumps: tuple = ()):
+    """Plain PyTorch version of :func:`sa_scan` (same output): the sorted
+    rows' key and payload words gathered, :func:`sa_scan_rows`, and the
+    scores scattered to their positions."""
+    N = perm.shape[1]
+    packed = pack_words(buf)
+    skeys = [k.gather(1, perm) for k in key_words(buf, N, n_total, hstart, nkey)]
+    spay = [packed[:, 4 * w : N + 4 * w].gather(1, perm) for w in range(nkey, probe_words)]
+    best = sa_scan_rows(skeys, perm.int(), spay, hstart, n_total, num_checks, probe_words,
+                        tail_jumps)
+    return torch.zeros_like(best).scatter_(1, perm, best)
+
+
+SA_ROWS = 8192  # sorted rows a block of csrc/sa_scan.cu scores (kRows)
+SA_MAX_SMEM = 227 * 1024  # shared memory a block may opt in to on Hopper
+
+
+def sa_scan_smem(num_checks: int, tail_jumps: tuple) -> int:
+    """Shared memory of one block of the kernel (csrc/sa_scan.cu)."""
+    deep = num_checks + sum(1 << j for j in tail_jumps)
+    span = (SA_ROWS + 2 * deep + 15) & ~15
+    tables = bool(tail_jumps) and max(tail_jumps) >= 4
+    return 4 * ((SA_ROWS + 2 * num_checks + 15) & ~15) + span * (4 if tables else 1)
+
+
+def sa_scan(buf, perm, hstart, n_total, num_checks: int, probe_words: int, nkey: int,
+            tail_jumps: tuple = ()):
+    """Each position's best suffix-order match as the packed score
+    ``run << 16 | (WINDOW_SIZE + 1 - dist)``, int32[B, N], 0 where the
+    position is no valid match start.
+
+    Args:
+      buf: uint8[B, W] chunk buffers, W >= N + 4*probe_words - 1.
+      perm: int64[B, N] the positions in the suffix sort's order (the
+        stable sort by the ``nkey`` words of :func:`key_words`: the kernel
+        relies on rows that share a key lying in position order).
+      hstart, n_total: int[B] first valid position / end of valid bytes.
+      num_checks: the K of the dense scan; tail_jumps: log2 of the tail's jumps.
+
+    A CUDA ``buf`` launches ``csrc/sa_scan.cu`` (K up to 128, 1 to 18 probe
+    words, 1 to 4 key words, up to 16 tail jumps of 2^0 to 2^14 rows that fit
+    a block's shared memory, W a multiple of 4); anything else raises.
+    """
+    if not buf.is_cuda:
+        return sa_scan_plain(buf, perm, hstart, n_total, num_checks, probe_words, nkey,
+                             tail_jumps)
+    B, N = perm.shape
+    W = buf.shape[1]
+    tail = tuple(int(j) for j in tail_jumps)
+    if not 1 <= num_checks <= 128:
+        raise ValueError(f"sa_scan: K={num_checks} outside 1..128")
+    if not 1 <= probe_words <= 18 or not 1 <= nkey <= min(4, probe_words):
+        raise ValueError(f"sa_scan: probe_words={probe_words}, nkey={nkey} not taken")
+    if len(tail) > 16 or any(not 0 <= j <= 14 for j in tail) or \
+            sa_scan_smem(num_checks, tail) > SA_MAX_SMEM:
+        raise ValueError(f"sa_scan: tail_jumps={tail} not taken")
+    if W % 4 or W < N + 4 * probe_words - 1 or W + N >= 1 << 31 or not 1 <= B <= 65535:
+        raise ValueError(f"sa_scan: buffers [{B}, {W}] for {N} positions not taken")
+    cuda.check_cuda(buf, "buf", torch.uint8, (B, W))
+    if buf.data_ptr() % 4:
+        raise ValueError("sa_scan: buf must be 4-byte aligned")
+    cuda.check_cuda(perm, "perm", torch.int64, (B, N))
+    hstart = hstart.to(device=buf.device, dtype=torch.int64).contiguous()
+    n_total = n_total.to(device=buf.device, dtype=torch.int64).contiguous()
+    cuda.check_cuda(hstart, "hstart", torch.int64, (B,))
+    cuda.check_cuda(n_total, "n_total", torch.int64, (B,))
+    out = torch.empty((B, N), dtype=torch.int32, device=buf.device)
+    jumps = (ctypes.c_int * max(1, len(tail)))(*tail)
+    _KERNEL(buf.device, buf.data_ptr(), W, perm.data_ptr(), hstart.data_ptr(),
+            n_total.data_ptr(), B, N, num_checks, probe_words, nkey, jumps, len(tail),
+            out.data_ptr())
+    return out
+
+
 def find_matches(buf, N: int, n_total, hstart, num_checks: int,
                  probe_words: int, nkey: int = 0, tail_jumps: tuple = ()):
     """Best (length, distance) per position of each chunk buffer.
@@ -179,32 +285,23 @@ def find_matches(buf, N: int, n_total, hstart, num_checks: int,
 
     Returns (best_len, best_dist): int32[B, N], 0 where no match >= 3.
     """
-    dev = buf.device
-    idx = torch.arange(N, dtype=torch.int32, device=dev)
-    nt = n_total.int()[:, None]
-    limit = (nt - idx).clamp(0, MAX_MATCH)
-    valid = (idx >= hstart.int()[:, None]) & (idx <= nt - 3)
-
+    idx = torch.arange(N, dtype=torch.int32, device=buf.device)
+    limit = (n_total.int()[:, None] - idx).clamp(0, MAX_MATCH)
     NKEY = min(nkey, 4, probe_words) if nkey else min(4, probe_words)
-    d = buf.long()
-    be = (d[:, :-3] << 24) | (d[:, 1:-2] << 16) | (d[:, 2:-1] << 8) | d[:, 3:]
-    keys = [torch.where(valid, be[:, 4 * w : N + 4 * w], _M32) for w in range(NKEY)]
-    packed = pack_words(buf)
-    pay = [packed[:, 4 * w : N + 4 * w] for w in range(NKEY, probe_words)]
-
-    perm = _stable_lex_sort(keys)
-    skeys = [k.gather(1, perm) for k in keys]
-    spay = [p.gather(1, perm) for p in pay]
-    spos = perm.int()
-    best = sa_scan(skeys, spos, spay, hstart, n_total, num_checks,
-                   probe_words, tail_jumps=tail_jumps)
-    return _unsort_and_extend(best, perm, limit, N)
+    perm = _stable_lex_sort(key_words(buf, N, n_total, hstart, NKEY))
+    score_pos = sa_scan(buf, perm, hstart, n_total, num_checks, probe_words, NKEY, tail_jumps)
+    return _extend_scores(score_pos, limit, N)
 
 
 def _unsort_and_extend(best, perm, limit, N: int):
     """Scores per sorted row -> (best_len, best_dist) per position, chain-
     and stride-extended.  The unsort is an inverse-permutation scatter."""
-    score_pos = torch.zeros_like(best).scatter_(1, perm, best)
+    return _extend_scores(torch.zeros_like(best).scatter_(1, perm, best), limit, N)
+
+
+def _extend_scores(score_pos, limit, N: int):
+    """Scores per position -> (best_len, best_dist), chain- and
+    stride-extended."""
     blen = torch.minimum(score_pos >> 16, limit)
     bdist = torch.where(score_pos > 0, WINDOW_SIZE + 1 - (score_pos & 0xFFFF), 0)
 

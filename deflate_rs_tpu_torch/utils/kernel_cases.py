@@ -16,7 +16,11 @@ bins' edges.  Every kernel also at the chunk sizes the JAX package encodes
 beyond 256 KiB (1 MiB) and at multiples of 16 that are no multiple of 64
 (4,112 bytes).  ``token_fields``: symbols on either side of both tables' ends
 and negative ones, table widths of 0, 15, 32 and more and below 0, extra
-values with bits above their width, stored rows.  This module builds such operands with numpy from a seed, so
+values with bits above their width, stored rows.  ``sa_scan``: runs of one
+byte, all-0xFF bytes beside rows whose keys are masked to all ones, periods
+of 2 and 3 and tie groups deeper than the tail's reach, records, random
+bytes and text, at every parameter set of the matcher, rows past 2^24
+positions among them.  This module builds such operands with numpy from a seed, so
 that the CPU tests (against the JAX package and the plain twins) and the
 card-side checks (``chip_smoke.py``, ``tests/test_torch_cuda.py``,
 ``tools/kernel_ab.py``) run the same cases.
@@ -668,3 +672,98 @@ FIELD_CASES = ([(1, E, nq, seed) for E in (4096, 65536)
 # checks them one element into their buffers, on the scalar path).
 FIELD_CASES_GRANULE = [(1, 1048576, 8, 0), (1, 1048576, 1, 1), (5, 4112, 1, 2),
                        (5, 4112, 4, 3)]
+
+
+# ---------------------------------------------------------------- sa_scan
+# The suffix-order scan (csrc/sa_scan.cu) at the matcher's three parameter
+# sets: (K, probe_words, nkey, tail_jumps) of Default at 64 KiB chunks,
+# Default above them (chain_scale > 1) and fast.
+SA_HALO = 32768
+SA_TAIL = (4, 5, 6, 7, 8, 9, 10, 11)
+SA_PARAMS = ((64, 6, 4, SA_TAIL), (128, 8, 4, SA_TAIL), (1, 4, 1, ()))
+SA_PATTERNS = ("zeros", "ff_invalid", "period2", "period3", "ties", "records", "random", "text")
+
+
+def _sa_bytes(pattern: str, rng, n: int) -> np.ndarray:
+    if pattern == "zeros":
+        return np.zeros(n, np.uint8)
+    if pattern == "ff_invalid":
+        return np.full(n, 0xFF, np.uint8)
+    if pattern in ("period2", "period3"):
+        # Every position ties with the whole chunk's positions of its phase,
+        # and the nearest is two or three bytes back: no side stops early.
+        return np.resize(rng.integers(0, 256, int(pattern[-1]), dtype=np.uint8), n)
+    if pattern == "ties":
+        # Units of 8 bytes, 6 of them common: tie groups of an eighth of the
+        # chunk, far deeper than the tail's 4,208 rows, whose LCPs wander
+        # between 6 and the cap.
+        unit = np.resize(rng.integers(0, 256, 8, dtype=np.uint8), n).reshape(-1)
+        unit[6::8] = rng.integers(0, 3, len(unit[6::8]))
+        unit[7::8] = rng.integers(0, 2, len(unit[7::8]))
+        return unit
+    if pattern == "records":
+        # The mix's records: a 48-byte prefix, a counter and 8 random bytes.
+        rec = rng.integers(0, 256, 48, dtype=np.uint8)
+        k = n // 64 + 1
+        out = np.empty((k, 64), np.uint8)
+        out[:, :48] = rec
+        out[:, 48:56] = np.arange(k, dtype="<u8").view(np.uint8).reshape(k, 8)
+        out[:, 56:] = rng.integers(0, 256, (k, 8), dtype=np.uint8)
+        return out.reshape(-1)[:n]
+    if pattern == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8)
+    if pattern == "text":
+        from .mix import pg11
+
+        text = np.frombuffer(pg11(), np.uint8)
+        at = int(rng.integers(0, len(text)))
+        return np.resize(np.roll(text, -at), n)
+    raise ValueError(pattern)
+
+
+def sa_operands(pattern: str, rng, E: int):
+    """One chunk's ``(buf uint8[SA_HALO + E + LR_PAD], hist_len, n)`` of the
+    named pattern.  The history is full, empty or cut, the payload full,
+    short or one of 0..3 bytes, so that rows before ``hstart`` and past
+    ``n_total - 3`` (keys of all ones) sort among the valid ones; the bytes
+    outside ``[hstart, n_total)`` are the pattern's or zeros."""
+    N = SA_HALO + E
+    buf = _sa_bytes(pattern, rng, N + LR_PAD)
+    shape = int(rng.integers(0, 4))
+    if pattern == "ff_invalid":
+        shape = 2 + shape % 2
+    hist, n = [(SA_HALO, E), (0, E), (int(rng.integers(1, SA_HALO)), int(rng.integers(0, E + 1))),
+               (int(rng.integers(0, SA_HALO)), int(rng.integers(0, 4)))][shape]
+    if rng.integers(0, 2):
+        buf[: SA_HALO - hist] = 0
+        buf[SA_HALO + n :] = 0
+    return buf, hist, n
+
+
+def sa_batch(E: int, B: int, seed: int = 0):
+    """``(buf uint8[B, SA_HALO + E + LR_PAD], hstart int64[B], n_total
+    int64[B])``: row ``r`` has pattern ``(r + seed) % 8`` of ``SA_PATTERNS``."""
+    rng = np.random.default_rng(9000 * seed + E + 5 * B)
+    rows = [sa_operands(SA_PATTERNS[(r + seed) % len(SA_PATTERNS)], rng, E) for r in range(B)]
+    return (np.stack([r[0] for r in rows]),
+            np.array([SA_HALO - r[1] for r in rows], np.int64),
+            np.array([SA_HALO + r[2] for r in rows], np.int64))
+
+
+# (E, B, seed): one chunk of each pattern in the 4 KiB and 64 KiB tiers,
+# then batches of 64 (every pattern eight times); at 1 MiB the same; one
+# chunk past 2^24 positions (period 3: the whole row one deep tie group, and
+# text).  Each case runs at every parameter set of SA_PARAMS.
+SA_CASES = ([(E, 1, seed) for E in (4096, 65536) for seed in range(len(SA_PATTERNS))]
+            + [(4096, 64, 0), (65536, 64, 1)])
+SA_CASES_MIB = [(1048576, 1, seed) for seed in range(len(SA_PATTERNS))] + [(1048576, 64, 2)]
+SA_CASES_16MIB = [(16777216, 1, 3), (16777216, 1, 7)]
+
+
+def sa_pattern_batch(pattern: str, E: int, B: int, seed: int = 0):
+    """``B`` full chunks (32 KiB of history, ``E`` bytes of payload) of one
+    pattern, as :func:`sa_batch` returns them: the shape of the main path's
+    batches, for timing the scan on one kind of input."""
+    rng = np.random.default_rng(seed)
+    buf = np.stack([_sa_bytes(pattern, rng, SA_HALO + E + LR_PAD) for _ in range(B)])
+    return buf, np.zeros(B, np.int64), np.full(B, SA_HALO + E, np.int64)

@@ -12,7 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from deflate_rs_tpu_torch.ops import (  # noqa: E402
-    field_kernel, hist_kernel, lr_kernel, parse_scan, pm_kernel,
+    field_kernel, hist_kernel, lr_kernel, matching, parse_scan, pm_kernel,
 )
 
 pytestmark = pytest.mark.cuda
@@ -268,7 +268,53 @@ def test_wrappers_refuse_unsupported_shapes(dev):
     t = [torch.from_numpy(a).to(dev) for a in kernel_cases.field_batch(1, 64, 64, 0)]
     with pytest.raises(ValueError):
         field_kernel.token_fields(*t)
+    # sa_scan: K past 128, probe words past 18, a tail past a block's shared
+    # memory, rows whose width is no multiple of 4.
+    buf, perm, hs, nt, N = _sa_inputs(dev, 4096, 1, 0, 4)
+    for K, PW, tail in ((129, 6, ()), (64, 19, ()), (64, 6, (14, 14))):
+        with pytest.raises(ValueError):
+            matching.sa_scan(buf, perm, hs, nt, K, PW, 4, tail)
+    with pytest.raises(ValueError):
+        matching.sa_scan(buf[:, :-2].contiguous(), perm, hs, nt, 64, 6, 4, ())
 
+
+
+# The suffix-order scan: its kernel cases at every parameter set of the
+# matcher, then the whole matcher with the kernel against the matcher with
+# the plain scan.
+
+def _sa_inputs(dev, E, B, seed, nkey):
+    buf, hs, nt = (torch.from_numpy(a).to(dev) for a in kernel_cases.sa_batch(E, B, seed))
+    N = kernel_cases.SA_HALO + E
+    perm = matching._stable_lex_sort(matching.key_words(buf, N, nt, hs, nkey))
+    return buf, perm, hs, nt, N
+
+
+_SA_IDS = ["k64", "k128", "fast"]
+
+
+@pytest.mark.parametrize("params", kernel_cases.SA_PARAMS, ids=_SA_IDS)
+@pytest.mark.parametrize("E,B,seed", kernel_cases.SA_CASES + kernel_cases.SA_CASES_MIB
+                         + kernel_cases.SA_CASES_16MIB)
+def test_sa_scan_adversarial(dev, E, B, seed, params):
+    K, PW, NK, tail = params
+    buf, perm, hs, nt, N = _sa_inputs(dev, E, B, seed, NK)
+    before = matching._KERNEL.launches
+    got = matching.sa_scan(buf, perm, hs, nt, K, PW, NK, tail)
+    assert matching._KERNEL.launches == before + 1
+    _same(got, matching.sa_scan_plain(buf, perm, hs, nt, K, PW, NK, tail))
+
+
+@pytest.mark.parametrize("params", kernel_cases.SA_PARAMS, ids=_SA_IDS)
+@pytest.mark.parametrize("E,B,seed", [(4096, 64, 3), (65536, 64, 1), (1048576, 8, 6)])
+def test_find_matches_with_the_kernel_equals_the_plain_scan(dev, monkeypatch, E, B, seed,
+                                                             params):
+    K, PW, NK, tail = params
+    buf, hs, nt = (torch.from_numpy(a).to(dev) for a in kernel_cases.sa_batch(E, B, seed))
+    N = kernel_cases.SA_HALO + E
+    got = matching.find_matches(buf, N, nt, hs, K, PW, NK, tail)
+    monkeypatch.setattr(matching, "sa_scan", matching.sa_scan_plain)
+    _same(got, matching.find_matches(buf, N, nt, hs, K, PW, NK, tail))
 
 
 # The chunk sizes of the corpus engine beyond 256 KiB (1 MiB) and the
@@ -383,13 +429,16 @@ def test_kernels_on_the_last_card_from_cuda_0(dev):
     buf, doms = on_card(kernel_cases.lr_measure_batch(32, 64, N, 0))
     ls, dc = on_card(kernel_cases.hist_batch(33, 65536, 0))
     fields = on_card(kernel_cases.field_batch(3, 4096, 8, 1))
+    sa = _sa_inputs(card, 65536, 4, 0, 4)
     calls = [(parse_scan.parse_scan, parse_scan.parse_scan_plain, (steps, n)),
              (pm_kernel.lengths_by_rank, pm_kernel.lengths_by_rank_plain,
               (leaf, _PM_CASES[0][2])),
              (lr_kernel.lr_measure, lr_kernel.lr_measure_plain, (buf, doms, N)),
              (hist_kernel.quarter_histograms, hist_kernel.quarter_histograms_plain,
               (ls, dc, nq)),
-             (field_kernel.token_fields, field_kernel.token_fields_plain, tuple(fields))]
+             (field_kernel.token_fields, field_kernel.token_fields_plain, tuple(fields)),
+             (matching.sa_scan, matching.sa_scan_plain,
+              (*sa[:4], 64, 6, 4, kernel_cases.SA_TAIL))]
     for kernel, plain, args in calls:
         got = kernel(*args)
         assert torch.cuda.current_device() == 0

@@ -11,6 +11,9 @@ against the twin too, and so is one of the kernel's tiled path (its three
 passes over tiles and groups of live slots, its 32- and 64-bit winner keys).
 The histogram cases go through the JAX package's
 Pallas kernel in interpret mode, the port's twin and ``numpy.bincount``.
+The suffix-order scan's cases go through a block-for-block numpy model of
+``csrc/sa_scan.cu`` (its halo, min-tables and early stops) against the plain
+twin ``sa_scan_plain``.
 Every value is an integer: tolerance 0 everywhere.  The card-side checks (``chip_smoke.py``,
 ``tests/test_torch_cuda.py``) hold the CUDA kernels against the same twins
 on the same operands.
@@ -30,7 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from deflate_rs_tpu.ops import longrange as jlr  # noqa: E402
 from deflate_rs_tpu.ops.hist_kernel import quarter_histograms_batched  # noqa: E402
-from deflate_rs_tpu_torch.ops import hist_kernel, lr_kernel  # noqa: E402
+from deflate_rs_tpu_torch.ops import hist_kernel, lr_kernel, matching  # noqa: E402
 from deflate_rs_tpu_torch.ops import longrange as tlr  # noqa: E402
 from deflate_rs_tpu_torch.utils import kernel_cases  # noqa: E402
 
@@ -543,3 +546,129 @@ def test_lr_models_equal_plain_at_1mib(S, seed):
         model = measure_tiled_model(bufs, 0, few, N, kernel_cases.LR_TILE, 16)
     for g, w in zip(model, want):
         np.testing.assert_array_equal(g, w[0].numpy())
+
+
+# ------------------------------------------------------------------ sa_scan
+
+SA_ROWS, SA_WINDOW = matching.SA_ROWS, 32768
+
+
+def score_of(run, pos, c, hst):
+    dist = pos - c
+    return np.where((dist >= 1) & (dist <= SA_WINDOW) & (c >= hst),
+                    (run << 16) | (SA_WINDOW + 1 - dist), 0)
+
+
+def sa_scan_model(buf, perm, hstart, n_total, K, PW, nkey, tail):
+    """``csrc/sa_scan.cu`` in numpy, block by block: each block's rows and
+    halo of LCPs (words compared in memory order, keys of invalid rows all
+    ones), the min-tables of 16 and 256 rows by doubling, and every row's two
+    walks with the kernel's skips and stops; all rows of a block walk at
+    once."""
+    B, N = perm.shape
+    out = np.full((B, N), -1, np.int64)
+    deep = K + sum(1 << j for j in tail)
+    span = (SA_ROWS + 2 * deep + 15) & ~15
+    levels = 8 if max(tail, default=-1) >= 8 else 4 if max(tail, default=-1) >= 4 else 0
+    for b in range(B):
+        pm = perm[b].astype(np.int64)
+        hst, last = int(hstart[b]), int(n_total[b]) - 3
+        row = buf[b]
+
+        def words(p):
+            at = p[:, None] + np.arange(4 * PW)
+            w = row[at].reshape(len(p), PW, 4).copy()
+            w[~((p >= hst) & (p <= last)), :nkey] = 0xFF
+            return w.view("<u4")[..., 0].astype(np.int64)
+
+        for r0 in range(0, N, SA_ROWS):
+            r = r0 - K + np.arange(SA_ROWS + 2 * K)
+            sp = np.where((r >= 0) & (r < N), pm[np.clip(r, 0, N - 1)], 0)
+            base = r0 - deep
+            r = base + np.arange(span)
+            a0 = np.zeros(span, np.int64)
+            ok = (r >= 1) & (r < N)
+            x = words(pm[r[ok]]) ^ words(pm[r[ok] - 1])
+            first = np.argmax(x != 0, axis=1)
+            d = x[np.arange(len(x)), first]
+            low = (d & -d).astype(np.uint64)  # the lowest set bit's byte is the first unequal
+            a0[ok] = np.where(d != 0, 4 * first + (np.log2(np.maximum(low, 1)).astype(int) >> 3),
+                              4 * PW)
+            tables, cur = {0: a0}, a0
+            for level in range(1, levels + 1):
+                s = 1 << (level - 1)
+                cur = np.minimum(cur, np.concatenate([np.full(s, 255), cur[:-s]]))
+                tables[level] = cur
+
+            def window(lo, j):
+                level = 8 if j >= 8 else 4 if j >= 4 else 0
+                step = 1 << level
+                return np.min([tables[level][lo + step - 1 + q * step]
+                               for q in range(1 << (j - level))], axis=0)
+
+            i = np.arange(r0, min(r0 + SA_ROWS, N))
+            pos = sp[i - r0 + K]
+            u, v = i - base, i - r0 + K
+            valid = (pos >= hst) & (pos <= last)
+            best = np.zeros(len(i), np.int64)
+            for side in (-1, 1):
+                # Depth 1 first.  Where its row shares row i's sort key (al >=
+                # 4 nkey), so do ``same`` rows in all: back, the nearest alone
+                # scores; ahead, none.  The walk resumes past them from cap.
+                at = np.arange(span)
+                if side < 0:
+                    brk = np.maximum.accumulate(np.where(a0 < 4 * nkey, at, -1))
+                    same = np.minimum(u - brk[u], deep)
+                else:
+                    brk = np.minimum.accumulate(np.where(a0 < 4 * nkey, at, span)[::-1])[::-1]
+                    same = np.minimum(brk[u + 1] - u - 1, deep)
+                group = same >= 1
+                run = np.minimum(4 * PW, a0[u] if side < 0 else a0[u + 1])
+                live = valid & (run >= 3)
+                if side < 0:
+                    best = np.where(live, score_of(run, pos, sp[v - 1], hst), best)
+                    live &= ~group | ((run << 16) + SA_WINDOW > best)
+                    done = np.where(group, same, 1)
+                    run = np.where(group, 4 * PW, run)
+                else:
+                    live &= (run << 16) + SA_WINDOW > best
+                    done = np.where(group, same, 0)
+                    run = np.full(len(i), 4 * PW)
+                live &= done < deep
+                steps = [(d, None) for d in range(1, K + 1)]
+                k = K
+                for j in tail:
+                    steps.append((k + (1 << j), (j, k)))
+                    k += 1 << j
+                for d, jump in steps:
+                    on = live & (d > done)
+                    if jump is None:
+                        a = a0[u - d + 1] if side < 0 else a0[u + d]
+                        c = sp[v - d] if side < 0 else sp[v + d]
+                    else:
+                        j, k = jump
+                        a = window(u - d + 1, j) if side < 0 else window(u + k + 1, j)
+                        c = pm[np.clip(i + side * d, 0, N - 1)]
+                    run = np.where(on, np.minimum(run, a), run)
+                    live &= ~on | ((run >= 3) & ((run << 16) + SA_WINDOW > best))
+                    on &= live
+                    best = np.where(on, np.maximum(best, score_of(run, pos, c, hst)), best)
+            out[b, pos] = np.where(valid, best, 0)
+    assert (out >= 0).all()  # every position written once
+    return out
+
+
+@pytest.mark.parametrize("params", kernel_cases.SA_PARAMS, ids=["k64", "k128", "fast"])
+@pytest.mark.parametrize("pattern", ["ff_invalid", "period2", "ties", "text"])
+def test_sa_scan_model_equals_plain(pattern, params):
+    """Four blocks and a half of 4 KiB-tier rows: the halo crosses every
+    block edge; the patterns that mask keys beside equal bytes, walk every
+    depth and jump, and wander inside deep tie groups, and text."""
+    K, PW, nkey, tail = params
+    E = 4096
+    buf, hs, nt = kernel_cases.sa_batch(E, 1, kernel_cases.SA_PATTERNS.index(pattern))
+    b, h, n = torch.from_numpy(buf), torch.from_numpy(hs), torch.from_numpy(nt)
+    perm = matching._stable_lex_sort(matching.key_words(b, HALO + E, n, h, nkey))
+    want = matching.sa_scan_plain(b, perm, h, n, K, PW, nkey, tail)
+    got = sa_scan_model(buf, perm.numpy(), hs, nt, K, PW, nkey, tail)
+    np.testing.assert_array_equal(got, want.numpy())

@@ -20,6 +20,7 @@ from deflate_rs_tpu.ops import matching as jm  # noqa: E402
 from deflate_rs_tpu_torch.ops import longrange as tlr  # noqa: E402
 from deflate_rs_tpu_torch.ops import lr_kernel  # noqa: E402
 from deflate_rs_tpu_torch.ops import matching as tm  # noqa: E402
+from deflate_rs_tpu_torch.utils import kernel_cases  # noqa: E402
 
 HALO, PAD = 32768, 72
 TAIL = (4, 5, 6, 7, 8, 9, 10, 11)
@@ -69,6 +70,31 @@ def test_find_matches_equal(name):
                              torch.tensor([hs]), 64, 6, 4, TAIL)
     np.testing.assert_array_equal(tl[0].numpy(), np.asarray(jl))
     np.testing.assert_array_equal(td[0].numpy(), np.asarray(jd))
+
+
+# The suffix-order scan on the kernel cases that mask rows' keys to all ones
+# beside all-0xFF bytes, and on tie groups deeper than the tail's reach, at
+# Default's two parameter sets (64 KiB chunks, and chain_scale > 1): the
+# plain version against the JAX package's sa_scan_xla on the same sorted
+# words.
+@pytest.mark.parametrize("params", kernel_cases.SA_PARAMS[:2], ids=["k64", "k128"])
+@pytest.mark.parametrize("pattern", ["ff_invalid", "period3", "ties"])
+def test_sa_scan_plain_equals_sa_scan_xla(pattern, params):
+    K, PW, NK, tail = params
+    E = 4096
+    buf, hs, nt = kernel_cases.sa_batch(E, 1, kernel_cases.SA_PATTERNS.index(pattern))
+    b, h, n = torch.from_numpy(buf), torch.from_numpy(hs), torch.from_numpy(nt)
+    N = HALO + E
+    keys = tm.key_words(b, N, n, h, NK)
+    perm = tm._stable_lex_sort(keys)
+    got = tm.sa_scan_plain(b, perm, h, n, K, PW, NK, tail).gather(1, perm)
+    packed = tm.pack_words(b)
+    words = [k.gather(1, perm)[0].numpy().astype(np.uint32) for k in keys]
+    pay = [packed[:, 4 * w : N + 4 * w].gather(1, perm)[0].numpy().astype(np.uint32)
+           for w in range(NK, PW)]
+    want = jax.jit(lambda sk, sp, sy, hs, nt: jm.sa_scan_xla(sk, sp, sy, hs, nt, K, PW, tail))(
+        words, perm[0].numpy().astype(np.int32), pay, np.int32(hs[0]), np.int32(nt[0]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
 
 def test_pack_words_and_extensions_equal():

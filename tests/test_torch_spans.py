@@ -156,7 +156,8 @@ def test_span_reads_the_switch_at_each_call(monkeypatch):
 # stage that launches each at Default.
 KERNEL_STAGE = {"lr_measure_kernel": "encoder.long_range", "parse_scan_kernel": "encoder.parse",
                 "quarter_hist_kernel": "encoder.histograms",
-                "package_merge_kernel": "encoder.tables", "token_fields_kernel": "encoder.fields"}
+                "package_merge_kernel": "encoder.tables", "token_fields_kernel": "encoder.fields",
+                "sa_scan_kernel": "encoder.lz77"}
 
 
 @pytest.fixture
