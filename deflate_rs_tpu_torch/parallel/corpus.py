@@ -20,17 +20,21 @@ How a batch moves on a CUDA device:
 * **splice**: on the host, in order, while up to ``queue_depth`` later
   batches are queued or running on the device.
 
-On the CPU the same steps run one after the other.  With
-``DEFLATE_TPU_TRACE_CORPUS=1`` the five steps are ``torch.profiler``
+On the CPU the same steps run one after the other.  The input's Adler-32
+and CRC-32 run on two host threads from the start of the call to its end.
+With ``DEFLATE_TPU_TRACE_CORPUS=1`` the five steps are ``torch.profiler``
 ranges (``corpus.upload``, ``corpus.encode``, ``corpus.meta_fetch``,
-``corpus.words_fetch``, ``corpus.splice``), and the same switch opens the
-chunk encoder's stage ranges inside ``corpus.encode`` (``encoder.lz77`` to
-``encoder.checksums``, one each a batch): ``runtime/trace.py``.
+``corpus.words_fetch``, ``corpus.splice``), as is the wait for the
+checksums after the last splice (``corpus.checksum_wait``, once a call);
+the same switch opens the chunk encoder's stage ranges inside
+``corpus.encode`` (``encoder.lz77`` to ``encoder.checksums``, one each a
+batch): ``runtime/trace.py``.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -80,6 +84,10 @@ MAX_CHUNK_SIZE = 1 << 25
 # Pipelines kept between calls, over all configurations together: each pins
 # ``queue_depth + 1`` staging and result buffers of a whole batch.
 POOL_MAX = 4
+
+# Name prefix of the threads (two at most) a call computes its input's
+# checksums on.
+CHECKSUM_THREADS = "corpus-checksum"
 
 
 class CorpusResult(StreamResult):
@@ -394,7 +402,6 @@ def compress_corpus(
 
     offsets = list(range(0, n, E)) if n else [0]
     arr = np.frombuffer(data, np.uint8)
-    asm = BitAssembler(n + n // 128 + 4096) if packed else None
     pieces = []
     inflight = collections.deque()  # (group, ns, lasts) of the batches in flight
 
@@ -419,29 +426,37 @@ def compress_corpus(
                         f"{words.shape[1]} B word buffer (bug)")
                 pieces.append(native.assemble_chunks(words, nbytes))
 
-    with borrow_pipeline(options, E, str(torch.device(device)), batch_size, queue_depth,
-                          packed) as pipe:
-        pipe.start()
-        for base in range(0, len(offsets), batch_size):
-            group = offsets[base : base + batch_size]
-            ns = [min(n - off, E) for off in group]
-            lasts = [off + ln >= n for off, ln in zip(group, ns)]
-            hist = [min(off, HALO) for off in group]
-            pipe.submit(arr[group[0] : group[-1] + E], hist, ns, lasts)
-            inflight.append((group, ns, lasts))
-            if len(inflight) > queue_depth:
+    # The input's Adler-32 and CRC-32 run beside everything else the call
+    # does, each on a thread of its own (unless the first is done before the
+    # second is queued: a short input).  The native calls release the GIL, so
+    # they take no time from the host's launches and splices, and the card
+    # does not wait for them once the last batch is spliced.  Leaving the
+    # block joins the threads, also when the encode raises.
+    with concurrent.futures.ThreadPoolExecutor(2, thread_name_prefix=CHECKSUM_THREADS) as pool:
+        checksums = [pool.submit(f, data) for f in (native.adler32, native.crc32)]
+        asm = BitAssembler(n + n // 128 + 4096) if packed else None
+        with borrow_pipeline(options, E, str(torch.device(device)), batch_size, queue_depth,
+                              packed) as pipe:
+            pipe.start()
+            for base in range(0, len(offsets), batch_size):
+                group = offsets[base : base + batch_size]
+                ns = [min(n - off, E) for off in group]
+                lasts = [off + ln >= n for off, ln in zip(group, ns)]
+                hist = [min(off, HALO) for off in group]
+                pipe.submit(arr[group[0] : group[-1] + E], hist, ns, lasts)
+                inflight.append((group, ns, lasts))
+                if len(inflight) > queue_depth:
+                    drain_one(pipe)
+            while inflight:
                 drain_one(pipe)
-        while inflight:
-            drain_one(pipe)
-        fetched = pipe.fetched
+            fetched = pipe.fetched
+        deflate = asm.take_aligned() if packed else b"".join(pieces)
+        # What of the checksums the encode did not cover.
+        with span("corpus.checksum_wait"):
+            adler, crc32 = (c.result() for c in checksums)
 
-    return CorpusResult(
-        deflate=asm.take_aligned() if packed else b"".join(pieces),
-        adler=native.adler32(data),
-        crc32=native.crc32(data),
-        isize=n % (1 << 32),
-        fetched=fetched,
-    )
+    return CorpusResult(deflate=deflate, adler=adler, crc32=crc32, isize=n % (1 << 32),
+                        fetched=fetched)
 
 
 def compress_corpus_zlib(data: bytes, options=None, *, batch_size: int | None = None,

@@ -5,11 +5,11 @@ a range of that name for ``torch.profiler``; otherwise it is a
 ``nullcontext``.  The switch is read at every call, so a caller may set it
 after its warm-up.  It covers every range of the program: the corpus
 engine's steps (``corpus.upload``, ``corpus.encode``, ``corpus.meta_fetch``,
-``corpus.words_fetch``, ``corpus.splice``; ``parallel/corpus.py``) and the
-chunk encoder's stages (``encoder.<stage>`` for each of
-``ChunkEncoder.STAGES``, opened by ``ChunkEncoder.run_stage``; the corpus
-engine, the one-shot and streaming encoders and the sharded step all run
-their stages through it).
+``corpus.words_fetch``, ``corpus.splice``, ``corpus.checksum_wait``;
+``parallel/corpus.py``) and the chunk encoder's stages (``encoder.<stage>``
+for each of ``ChunkEncoder.STAGES``, opened by ``ChunkEncoder.run_stage``;
+the corpus engine, the one-shot and streaming encoders and the sharded step
+all run their stages through it).
 
 The ranges live on the host's timeline only.  They are function-scope
 records (the kind ``torch.profiler`` gives each operator), not user

@@ -4,10 +4,11 @@ Profiles one warm run of each engine over ``chip_smoke.py``'s 16 MiB mix with
 ``torch.profiler`` and prints one JSON object per engine: the wall time, the
 number of device activities (kernels, copies, memsets), the time the device
 was busy (the union of their intervals), its idle share, and for the corpus
-engine the host time inside each of its five ranges (``corpus.upload``,
+engine the host time inside each of its six ranges (``corpus.upload``,
 ``corpus.encode``, ``corpus.meta_fetch``, ``corpus.words_fetch``,
-``corpus.splice``; ``DEFLATE_TPU_TRACE_CORPUS=1`` is set here).  Run from the
-repository root on a machine with one NVIDIA GPU:
+``corpus.splice``, ``corpus.checksum_wait``; ``DEFLATE_TPU_TRACE_CORPUS=1``
+is set here).  Run from the repository root on a machine with one NVIDIA
+GPU:
 
     python3 -m deflate_rs_tpu_torch.tools.corpus_profile [--batch-size N] [--queue-depth N]
 

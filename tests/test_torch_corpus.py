@@ -6,10 +6,14 @@ byte for byte against ``deflate_rs_tpu.parallel.corpus`` and against the
 port's own chunk-batch engine; then ``packed=False`` and the two engines of
 ``compress_stream``.  Tolerance: exact equality.  Every JAX stream is computed
 once per module.  ``tests/test_torch_corpus_options.py`` has the engine's
-other options.
+other options.  Last, the checksums that run on threads of their own beside
+the encode: zlib's values, no thread left after a call that raises, and
+calls on two threads at once (huffman_only, the fastest preset on the CPU:
+the checksums do not depend on the preset).
 """
 
 import gzip
+import threading
 import zlib
 
 import pytest
@@ -25,6 +29,7 @@ import deflate_rs_tpu_torch as dt  # noqa: E402
 from deflate_rs_tpu.parallel import corpus as jcorpus  # noqa: E402
 from deflate_rs_tpu_torch.models.deflate import compress_stream  # noqa: E402
 from deflate_rs_tpu_torch.parallel import corpus as tcorpus  # noqa: E402
+from deflate_rs_tpu_torch.utils.mix import mix  # noqa: E402
 from torch_corpus_data import inputs as _inputs, jax_stream as _jax_stream  # noqa: E402
 
 CPU = {"device": "cpu"}
@@ -99,3 +104,77 @@ def test_both_engines_give_the_same_bytes(pipelined):
     data = _inputs("mixed_tail")  # four chunks: the default routing keeps the old engine
     res = compress_stream(data, dt.CompressionOptions.default(), pipelined=pipelined, **CPU)
     assert res.deflate == _jax_stream("mixed_tail", 4)
+
+
+# The checksum threads.
+
+HUFF = dt.CompressionOptions.huffman_only()
+
+
+def _checksum_threads():
+    return [t for t in threading.enumerate() if t.name.startswith(tcorpus.CHECKSUM_THREADS)]
+
+
+@pytest.mark.parametrize("n,chunk_size,batch_size,packed", [
+    (0, 4096, 2, True),  # empty
+    (1, 4096, 2, True),  # one byte
+    (2 * 4096 + 100, 4096, 8, True),  # a partial last chunk in one batch
+    (5 * 4096 + 100, 4096, 2, True),  # three batches
+    (5 * 4096 + 100, 4096, 2, False),  # three batches, byte-aligned
+], ids=["empty", "one_byte", "partial_last_chunk", "batches", "batches_unpacked"])
+def test_checksums_equal_zlibs(n, chunk_size, batch_size, packed):
+    data = mix(n)
+    res = tcorpus.compress_corpus(data, HUFF, batch_size=batch_size, chunk_size=chunk_size,
+                                  packed=packed, **CPU)
+    assert zlib.decompress(res.deflate, wbits=-15) == data
+    assert (res.adler, res.crc32, res.isize) == (zlib.adler32(data), zlib.crc32(data), n)
+    assert not _checksum_threads()
+
+
+@pytest.mark.parametrize("step", ["submit", "fetch_next"])
+def test_an_encode_that_raises_leaves_no_checksum_thread(monkeypatch, step):
+    """The call raises the encode's error, and only once the checksum
+    threads, alive when it raised, have ended."""
+    running = []
+
+    def fail(*args, **kwargs):
+        running.extend(_checksum_threads())
+        raise RuntimeError("planted encode failure")
+
+    monkeypatch.setattr(tcorpus.BatchPipeline, step, fail)
+    with pytest.raises(RuntimeError, match="planted encode failure"):
+        tcorpus.compress_corpus(mix(3 * 4096), HUFF, batch_size=1, chunk_size=4096, **CPU)
+    assert running
+    assert not any(t.is_alive() for t in running) and not _checksum_threads()
+
+
+def test_a_checksum_that_raises_raises_at_the_join(monkeypatch):
+    def fail(data, value=0):
+        raise ValueError("planted checksum failure")
+
+    monkeypatch.setattr(tcorpus.native, "crc32", fail)
+    with pytest.raises(ValueError, match="planted checksum failure"):
+        tcorpus.compress_corpus(mix(3 * 4096), HUFF, batch_size=2, chunk_size=4096, **CPU)
+    assert not _checksum_threads()
+
+
+def test_two_threads_at_once_get_their_own_checksums():
+    inputs = [mix(3 * 4096 + 7), bytes(reversed(mix(4 * 4096 + 11)))]
+    results = [None] * len(inputs)
+    barrier = threading.Barrier(len(inputs))
+
+    def run(i):
+        barrier.wait(timeout=30)
+        results[i] = tcorpus.compress_corpus(inputs[i], HUFF, batch_size=1, chunk_size=4096,
+                                             **CPU)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(inputs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    for data, res in zip(inputs, results):
+        assert zlib.decompress(res.deflate, wbits=-15) == data
+        assert (res.adler, res.crc32) == (zlib.adler32(data), zlib.crc32(data))
+    assert not _checksum_threads()

@@ -444,3 +444,27 @@ def test_kernels_on_the_last_card_from_cuda_0(dev):
         assert torch.cuda.current_device() == 0
         assert all(g.device == card for g in (got if isinstance(got, tuple) else (got,)))
         _same(got, plain(*args))
+
+
+# The corpus engine's checksums, computed on host threads while the card
+# encodes: zlib's values, and one wait for them a call.
+
+@pytest.mark.parametrize("chunk_size,batch_size,n", [(65536, 4, 10 * 65536 + 123),
+                                                     (1 << 20, 2, 3 * (1 << 20) + 5)],
+                         ids=["64k_3_batches", "1m_2_batches"])
+def test_corpus_checksums_on_the_card(dev, monkeypatch, chunk_size, batch_size, n):
+    import zlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deflate_rs_tpu_torch.parallel.corpus import compress_corpus
+    from deflate_rs_tpu_torch.runtime import trace
+    from deflate_rs_tpu_torch.utils.mix import mix
+
+    data = mix(n)
+    monkeypatch.setenv(trace.SWITCH, "1")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = compress_corpus(data, batch_size=batch_size, chunk_size=chunk_size, device=dev)
+    assert zlib.decompress(res.deflate, wbits=-15) == data
+    assert (res.adler, res.crc32) == (zlib.adler32(data), zlib.crc32(data))
+    assert [e.name for e in prof.events()].count("corpus.checksum_wait") == 1

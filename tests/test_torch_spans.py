@@ -2,7 +2,8 @@
 
 With ``DEFLATE_TPU_TRACE_CORPUS=1`` the corpus engine opens each of the
 chunk encoder's stage ranges ``encoder.<stage>`` once a batch, in
-``ChunkEncoder.STAGES`` order, inside its ``corpus.encode`` range; the
+``ChunkEncoder.STAGES`` order, inside its ``corpus.encode`` range, and
+``corpus.checksum_wait`` once a call, after its last splice; the
 sharded step opens the same stage ranges once a device; with the switch off
 neither opens a range; the streams are the same bytes either way.  On the
 CPU, under a CPU ``torch.profiler``.  The tests marked ``cuda`` trace one
@@ -93,6 +94,13 @@ def _names(ranges):
 def test_corpus_encode_opens_once_a_batch(corpus_on):
     _, ranges = corpus_on
     assert _names(ranges).count("corpus.encode") == BATCHES
+
+
+def test_checksum_wait_opens_once_a_call_after_the_last_splice(corpus_on):
+    _, ranges = corpus_on
+    (wait,) = [e for e in ranges if e.name == "corpus.checksum_wait"]
+    last_splice = max(e.time_range.end for e in ranges if e.name == "corpus.splice")
+    assert wait.cpu_parent is None and wait.time_range.start >= last_splice
 
 
 @pytest.mark.parametrize("stage", ChunkEncoder.STAGES)
